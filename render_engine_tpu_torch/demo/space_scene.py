@@ -1,0 +1,308 @@
+"""The space scene: stars, orbiting asteroids, a wormhole, a mine producer,
+a textured station and the player ship.
+
+Port of ``render_engine_tpu/demo/space_scene.py``: the same scene from the
+same seeds, ``space_config`` with the same budgets, and the four logic
+callbacks rewritten for tensors. The station is read from the tracked
+asset ``debug_out/assets/station.{obj,mtl}`` with ``panels.ppm`` and
+``bumps.ppm`` (resolved against the repository root, never written).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from render_engine_tpu_torch.ecs import changes as C
+from render_engine_tpu_torch.ecs import registry as R
+from render_engine_tpu_torch.logic.types import (KEY_A, KEY_D, KEY_S,
+                                                 KEY_SHIFT, KEY_SPACE, KEY_W,
+                                                 EntityType)
+from render_engine_tpu_torch.math import transforms as T
+from render_engine_tpu_torch.math.camera import CameraBuilder
+from render_engine_tpu_torch.models import primitives
+from render_engine_tpu_torch.render import skybox as SB
+from render_engine_tpu_torch.render.frame import RenderSettings
+from render_engine_tpu_torch.render.raster_jnp import RasterConfig
+from render_engine_tpu_torch.runtime.config import EngineConfig
+from render_engine_tpu_torch.runtime.engine import Engine
+
+TYPE_STAR = 0
+TYPE_ASTEROID = 1
+TYPE_WORMHOLE = 2
+TYPE_MINE_PRODUCER = 3
+TYPE_MINE = 4
+TYPE_USER = 5
+TYPE_STATION = 6
+
+SHIP_ACCEL = 40.0
+SHIP_DECAY = 0.96
+WORMHOLE_IMPULSE = 120.0
+MINE_SPAWN_PERIOD = 4.0
+
+STATION_OBJ = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "debug_out", "assets", "station.obj")
+
+CUSTOM_COMPONENTS = (
+    R.ComponentSpec("orbit_angle", (), "float32"),
+    R.ComponentSpec("orbit_radius", (), "float32"),
+    R.ComponentSpec("orbit_speed", (), "float32"),
+    R.ComponentSpec("orbit_center", (3,), "float32"),
+    R.ComponentSpec("spawn_timer", (), "float32"),
+)
+
+
+def asteroid_orbit_logic(world, dt, mask, cs):
+    """position = center + r (cos a, 0, sin a), a advancing at its speed."""
+    a = world["orbit_angle"] + world["orbit_speed"] * dt
+    r = world["orbit_radius"]
+    pos = world["orbit_center"] + torch.stack(
+        [r * torch.cos(a), torch.zeros_like(a), r * torch.sin(a)], dim=-1)
+    cs = C.with_update(cs, "orbit_angle", a, mask)
+    return C.with_update(cs, "position", pos, mask)
+
+
+def mine_producer_logic(world, dt, mask, rng, cs):
+    """Every MINE_SPAWN_PERIOD seconds, spawn one mine at a random offset
+    from the first firing producer. One draw feeds both the offset and the
+    velocity (the JAX version draws both from one key)."""
+    timer = world["spawn_timer"] + torch.where(mask, dt, 0.0)
+    fire = mask & (timer >= MINE_SPAWN_PERIOD)
+    timer = torch.where(fire, torch.zeros_like(timer), timer)
+    cs = C.with_update(cs, "spawn_timer", timer, mask)
+    any_fire = fire.any()
+    src = fire.to(torch.int8).argmax()
+    u = torch.rand(3, generator=rng, device=world.device)
+    offset = -8.0 + 16.0 * u
+    vel = -2.0 + 4.0 * u
+    budget = cs.spawns.budget
+    dev = world.device
+    row = (torch.arange(budget, device=dev) == 0) & any_fire
+    return C.queue_spawn(
+        cs, world.config.registry, row,
+        position=(world["position"][src] + offset).expand(budget, 3),
+        velocity=vel.expand(budget, 3),
+        scale=torch.full((budget, 3), 0.4, device=dev),
+        type_id=torch.full((budget,), TYPE_MINE, dtype=torch.int32,
+                           device=dev),
+        model_id=torch.full((budget,), _MINE_MODEL[0], dtype=torch.int32,
+                            device=dev),
+        flags=torch.full((budget,), R.FLAG_COLLIDABLE, dtype=torch.int32,
+                         device=dev))
+
+
+_MINE_MODEL = [0]  # set at scene build (model ids are bank-assigned)
+
+
+def user_input_logic(world, camera, inputs, dt, cs):
+    """Inertial WASD flight + mouse look: thrust along the camera basis,
+    velocity decaying by SHIP_DECAY per frame."""
+    camera = camera.rotated(inputs.mouse_delta[0], inputs.mouse_delta[1])
+    k = inputs.keys.to(torch.float32)
+    fwd = camera.direction()
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
+                      device=world.device)
+    right = T.cross(fwd, up)
+    right = right / torch.linalg.vector_norm(right)
+    accel = (fwd * (k[KEY_W] - k[KEY_S]) + right * (k[KEY_D] - k[KEY_A])
+             + up * (k[KEY_SPACE] - k[KEY_SHIFT])) * SHIP_ACCEL
+    vel = (world["velocity"] + accel[None] * dt) * SHIP_DECAY
+    cs = C.with_update(cs, "velocity", vel, world.flag_set(R.FLAG_USER))
+    return cs, camera
+
+
+def user_collision_logic(world, other_idx, mask, cs, other_type=None):
+    """Wormhole hit => forward velocity impulse."""
+    if other_type is None:
+        other_type = world["type_id"][other_idx.clamp(min=0).long()]
+    hit_wormhole = mask & (other_type == TYPE_WORMHOLE)
+    vel = world["velocity"]
+    speed = torch.linalg.vector_norm(vel, dim=-1, keepdim=True)
+    fallback = torch.tensor([0.0, 0.0, -1.0], dtype=torch.float32,
+                            device=world.device)
+    direction = torch.where(speed > 1e-6, vel / speed.clamp(min=1e-6),
+                            fallback)
+    return C.with_update(cs, "velocity", direction * WORMHOLE_IMPULSE,
+                         hit_wormhole)
+
+
+ENTITY_TYPES = (
+    EntityType("star", TYPE_STAR),
+    EntityType("asteroid", TYPE_ASTEROID, logic=asteroid_orbit_logic),
+    EntityType("wormhole", TYPE_WORMHOLE),
+    EntityType("mine_producer", TYPE_MINE_PRODUCER,
+               random_logic=mine_producer_logic),
+    EntityType("mine", TYPE_MINE),
+    EntityType("user", TYPE_USER, user_input=user_input_logic,
+               collision=user_collision_logic),
+    EntityType("station", TYPE_STATION),
+)
+
+
+def build_scene(engine: Engine, num_asteroids: int = 40, seed: int = 42,
+                normal_maps: bool = True):
+    bb = engine.bank_builder
+    star_mat = bb.add_material(albedo=(1.0, 0.85, 0.5), emissive=1.0)
+    rock_mat = bb.add_material(albedo=(0.45, 0.38, 0.33))
+    worm_mat = bb.add_material(albedo=(0.4, 0.2, 0.9), alpha=0.45)
+    mine_mat = bb.add_material(albedo=(0.7, 0.1, 0.1))
+    prod_mat = bb.add_material(albedo=(0.2, 0.7, 0.4), alpha=0.7)
+
+    star_model = bb.add_model("star", primitives.uv_sphere(14.0, 12, 18),
+                              material=star_mat)
+    rock_full = bb.add_model("asteroid",
+                             primitives.asteroid(2.0, 8, 12, seed=seed),
+                             material=rock_mat)
+    rock_lod = bb.add_model("asteroid_lod", primitives.icosahedron(2.0),
+                            material=rock_mat)
+    rock_far = bb.add_model("asteroid_far", primitives.tetrahedron(2.0),
+                            material=rock_mat)
+    bb.set_levels_of_view(rock_full, [rock_full, rock_lod, rock_lod,
+                                      rock_far, rock_far, rock_far])
+    worm_model = bb.add_model("wormhole", primitives.uv_sphere(6.0, 8, 12),
+                              material=worm_mat)
+    mine_model = bb.add_model("mine", primitives.cube(1.0), material=mine_mat)
+    prod_model = bb.add_model("mine_producer", primitives.cube(4.0),
+                              material=prod_mat)
+    _MINE_MODEL[0] = mine_model
+
+    from render_engine_tpu_torch.render.textures import TextureAtlasBuilder
+
+    atlas_builder = TextureAtlasBuilder(layer_size=64)
+    station_model = bb.add_obj("station", STATION_OBJ,
+                               atlas_builder=atlas_builder)
+    if not normal_maps:
+        for d in bb._mats:
+            d["texture_normal"] = -1
+    engine.set_atlas(atlas_builder.finalize(engine.device))
+
+    rng = np.random.default_rng(seed)
+    base = np.array([1000.0, 1000.0, 1000.0], np.float32)
+    star_pos = np.stack([base + [0, 0, -120], base + [180, 30, -260]])
+    engine.spawn(
+        2, position=star_pos,
+        model_id=np.full(2, star_model, np.int32),
+        type_id=np.full(2, TYPE_STAR, np.int32),
+        ang_vel=np.array([[0.0, 0.15, 0.0], [0.0, -0.1, 0.0]], np.float32),
+        sortable=np.full(2, R.SORTABLE_SPOT, np.int32),
+        light_diffuse=np.array([[1.0, 0.9, 0.7], [0.9, 0.8, 1.0]],
+                               np.float32),
+        light_specular=np.full((2, 3), 0.8, np.float32),
+        light_ambient=np.full((2, 3), 0.04, np.float32),
+        light_atten=np.full((2, 2), [0.004, 0.00005], np.float32),
+        light_direction=np.array([[0.0, -0.3, 1.0], [-0.5, 0.0, 1.0]],
+                                 np.float32),
+        light_cutoff=np.full((2, 2), [np.cos(0.6), np.cos(1.0)], np.float32),
+        light_radius=np.full(2, 400.0, np.float32),
+        light_fov=np.full(2, 1.2, np.float32),
+        flags=np.full(2, R.FLAG_ALWAYS_LOGIC, np.uint32))
+
+    n = num_asteroids
+    if n <= 500:
+        centers = star_pos[rng.integers(0, 2, n)]
+    else:
+        dirs = rng.normal(size=(n, 3))
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+        shell = rng.uniform(200.0, 1400.0, (n, 1)) ** 1.0
+        centers = np.clip((base + dirs * shell).astype(np.float32), 100.0,
+                          16284.0)
+    radii = rng.uniform(40.0, 160.0, n).astype(np.float32)
+    angles = rng.uniform(0, 2 * np.pi, n).astype(np.float32)
+    speeds = rng.uniform(0.05, 0.3, n).astype(np.float32) * np.where(
+        rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
+    pos = centers + np.stack(
+        [radii * np.cos(angles), rng.uniform(-20, 20, n).astype(np.float32),
+         radii * np.sin(angles)], axis=-1)
+    centers_y = centers.copy()
+    centers_y[:, 1] = pos[:, 1]
+    engine.spawn(
+        n, position=pos.astype(np.float32),
+        model_id=np.full(n, rock_full, np.int32),
+        type_id=np.full(n, TYPE_ASTEROID, np.int32),
+        scale=rng.uniform(0.5, 2.0, (n, 1)).astype(np.float32).repeat(3, 1),
+        ang_vel=rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32),
+        orbit_angle=angles, orbit_radius=radii, orbit_speed=speeds,
+        orbit_center=centers_y.astype(np.float32),
+        flags=np.full(n, R.FLAG_COLLIDABLE, np.uint32))
+
+    engine.spawn(
+        1, position=(base + np.array([60.0, 0.0, -60.0]))[None],
+        model_id=np.array([worm_model], np.int32),
+        type_id=np.array([TYPE_WORMHOLE], np.int32),
+        flags=np.array([R.FLAG_COLLIDABLE | R.FLAG_TRANSPARENT], np.uint32))
+    engine.spawn(
+        1, position=(base + np.array([-80.0, 10.0, -100.0]))[None],
+        model_id=np.array([prod_model], np.int32),
+        type_id=np.array([TYPE_MINE_PRODUCER], np.int32),
+        flags=np.array([R.FLAG_TRANSPARENT | R.FLAG_ALWAYS_LOGIC],
+                       np.uint32),
+        spawn_timer=np.zeros(1, np.float32))
+    engine.spawn(
+        1, position=(base + np.array([-40.0, -15.0, -80.0]))[None],
+        model_id=np.array([station_model], np.int32),
+        type_id=np.array([TYPE_STATION], np.int32),
+        ang_vel=np.array([[0.0, 0.05, 0.0]], np.float32))
+    engine.spawn(
+        1, position=np.array([[1000.0, 1000.0, 1150.0]], np.float32),
+        velocity=np.zeros((1, 3), np.float32),
+        type_id=np.array([TYPE_USER], np.int32),
+        flags=np.array([R.FLAG_USER | R.FLAG_ALWAYS_LOGIC | R.FLAG_COLLIDABLE
+                        | R.FLAG_USER_ALWAYS_COLLIDES], np.uint32))
+
+    engine.set_skybox(SB.make_starfield(2400, device=engine.device))
+
+    from render_engine_tpu_torch.prelude.default_render_system import (
+        default_render_systems)
+
+    engine.set_render_systems(lambda bank: default_render_systems(
+        bank, emissive_models=(star_model,)))
+
+
+def space_config(*, capacity: int = 256, num_asteroids: int = 40,
+                 width: int = 800, height: int = 600, max_tris: int = 32768,
+                 spawn_budget: int = 4, enable_shadows: bool = False,
+                 normal_maps: bool = True,
+                 raster_tile_budget: int | None = None,
+                 trans_tile_budget: int | None = None,
+                 collision_large_budget: int | None = None) -> EngineConfig:
+    """The demo's configuration: the JAX package's budgets, minus the
+    shadow settings (shadows are not ported yet)."""
+    return EngineConfig(
+        capacity=capacity, world_length=16384.0, section_length=64.0,
+        registry=R.ComponentRegistry(custom=CUSTOM_COMPONENTS),
+        collision_large_budget=(32 if collision_large_budget is None
+                                else collision_large_budget),
+        render=RenderSettings(
+            width=width, height=height, max_tris=max_tris,
+            max_point_lights=8, max_spot_lights=8,
+            texture_tile_budget=0.04 if height >= 240 else 0.5,
+            raster=RasterConfig(
+                tile_budget=(112 if raster_tile_budget is None
+                             else raster_tile_budget),
+                trans_tile_budget=trans_tile_budget or 64,
+                global_budget=32, pair_budget=3 * max_tris)),
+        entity_types=ENTITY_TYPES,
+        lov_fractions=(0.10, 0.15, 0.20, 0.25, 0.30),
+        spawn_budget=spawn_budget,
+        build_scene=lambda e: build_scene(e, num_asteroids=num_asteroids,
+                                          normal_maps=normal_maps),
+        enable_shadows=enable_shadows)
+
+
+def space_camera(width: int, height: int, device="cpu"):
+    """The demo camera: at the ship, looking down -Z, far plane at the
+    1500-unit draw distance."""
+    return (CameraBuilder().with_position(1000.0, 1000.0, 1150.0)
+            .with_yaw_pitch_degrees(-90.0, 0.0).with_fov_degrees(60.0)
+            .with_aspect(width / height).with_near_far(0.5, 1500.0)
+            .with_draw_distance(1500.0).build(device))
+
+
+def build_space_engine(*, device="cpu", **kw) -> Engine:
+    cfg = space_config(**kw)
+    return Engine(cfg, camera=space_camera(cfg.render.width,
+                                           cfg.render.height, device),
+                  device=device)

@@ -1,0 +1,136 @@
+"""Build, load and count the port's CUDA kernels.
+
+The kernels are CUDA C++ sources under ``csrc/`` with a plain C interface.
+``library()`` compiles them on first use with one ``nvcc`` call into
+``_build/librender_kernels.so`` (sm_90a, ``-fmad=false`` so that the edge
+functions and shading sums round exactly like the plain PyTorch versions)
+and loads it through ``ctypes``. Nothing is built or loaded at import
+time: the CPU tests import every module on machines without ``nvcc``.
+
+``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
+where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "librender_kernels.so")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+LAUNCHES = {"tile_raster": 0, "resolve": 0, "fused_shade": 0}
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every pointer and the stream as void*, every int as int
+_SIGNATURES = {
+    "launch_tile_raster": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    "launch_resolve": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "launch_fused_shade": [*[_VP] * 16, *[_I] * 10, _F, _F, *[_I] * 4,
+                           _F, _F, _VP],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin",
+                                                     "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile every ``csrc/*.cu`` into one shared library; returns its
+    path. ``verbose`` adds ``-Xptxas -v`` (registers, spills) and prints
+    the compiler's output."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    tmp = LIB_PATH + f".{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-I", CSRC, "-o", tmp, *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, LIB_PATH)
+    return LIB_PATH
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    return any(os.path.getmtime(f) > built
+               for f in glob.glob(os.path.join(CSRC, "*.cu*")))
+
+
+def library():
+    """The loaded kernel library, built on first use (and rebuilt when a
+    source is newer than the library)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            lib = ctypes.CDLL(LIB_PATH)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+          device: torch.device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (the kernels take nothing else)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def launch(name: str, count_key: str, *args):
+    """Call a C launcher; raise on a nonzero ``cudaGetLastError`` code."""
+    err = getattr(library(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    LAUNCHES[count_key] += 1

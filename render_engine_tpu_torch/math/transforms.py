@@ -1,0 +1,128 @@
+"""Rotations (quaternion), projections and 4x4 matrix helpers.
+
+Port of ``render_engine_tpu/math/transforms.py`` (the subset the frame
+uses). Conventions are unchanged: column vectors (p' = M @ p), right-handed
+world, +Y up, camera looking down -Z, GL clip space, quaternions (w, x, y, z).
+
+Coordinate math stays full float32: a TF32 matrix product keeps ~3 decimal
+digits, which puts the far plane of a proj @ view hundreds of units off
+(the same failure the JAX package hit with bf16 products), so TF32 is
+switched off for both matmuls and cuDNN when this module is imported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def mm44(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """4x4 (or batched) matrix compose in full float32."""
+    return torch.matmul(a, b)
+
+
+def inv44(m: torch.Tensor) -> torch.Tensor:
+    """4x4 inverse without the singularity check (``inv_ex`` does not wait
+    for the device to report its LU status)."""
+    return torch.linalg.inv_ex(m)[0]
+
+
+def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor
+                         ) -> torch.Tensor:
+    n = torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    safe = torch.where(n > 1e-12, n, torch.ones_like(n))
+    u = torch.where(n > 1e-12, axis / safe, torch.zeros_like(axis))
+    half = 0.5 * angle[..., None]
+    return torch.cat([torch.cos(half), torch.sin(half) * u], dim=-1)
+
+
+def quat_from_rotvec(rotvec: torch.Tensor) -> torch.Tensor:
+    angle = torch.linalg.vector_norm(rotvec, dim=-1)
+    return quat_from_axis_angle(rotvec, angle)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b (apply b first, then a)."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q / torch.where(n > 1e-12, n, torch.ones_like(n))
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors (..., 3) by quaternions (..., 4)."""
+    qv = q[..., 1:]
+    w = q[..., :1]
+    qv, v = torch.broadcast_tensors(qv, v)
+    t = 2.0 * torch.linalg.cross(qv, v, dim=-1)
+    return v + w * t + torch.linalg.cross(qv, t, dim=-1)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def look_at(eye: torch.Tensor, target: torch.Tensor, up: torch.Tensor
+            ) -> torch.Tensor:
+    """Right-handed look-at view matrix, (4, 4)."""
+    f = target - eye
+    f = f / torch.linalg.vector_norm(f)
+    s = cross(f, up)
+    s = s / torch.linalg.vector_norm(s)
+    u = cross(s, f)
+    zero = torch.zeros((), dtype=eye.dtype, device=eye.device)
+    one = torch.ones((), dtype=eye.dtype, device=eye.device)
+    rows = [
+        torch.cat([s, -(s * eye).sum()[None]]),
+        torch.cat([u, -(u * eye).sum()[None]]),
+        torch.cat([-f, (f * eye).sum()[None]]),
+        torch.stack([zero, zero, zero, one]),
+    ]
+    return torch.stack(rows)
+
+
+def perspective(fov_y_rad: float, aspect: float, near: float, far: float,
+                device=None) -> torch.Tensor:
+    """GL-style perspective projection, NDC z in [-1, 1]."""
+    t = 1.0 / torch.tan(0.5 * torch.tensor(fov_y_rad, dtype=torch.float32))
+    m = torch.zeros((4, 4), dtype=torch.float32)
+    m[0, 0] = t / torch.tensor(aspect, dtype=torch.float32)
+    m[1, 1] = t
+    m[2, 2] = (far + near) / (near - far)
+    m[2, 3] = 2.0 * far * near / (near - far)
+    m[3, 2] = -1.0
+    return m.to(device)
+
+
+def direction_from_yaw_pitch(yaw: torch.Tensor, pitch: torch.Tensor
+                             ) -> torch.Tensor:
+    """Camera forward vector; yaw = -90 deg looks down -Z."""
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    d = torch.stack([cy * cp, sp, sy * cp], dim=-1)
+    return d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+
+
+def frustum_planes(proj_view: torch.Tensor) -> torch.Tensor:
+    """Six normalized Gribb-Hartmann planes (left, right, bottom, top,
+    near, far), shape (6, 4); inside iff dot(n, p) + d >= 0."""
+    r0, r1, r2, r3 = proj_view.unbind(0)
+    planes = torch.stack([r3 + r0, r3 - r0, r3 + r1, r3 - r1, r3 + r2,
+                          r3 - r2])
+    n = torch.linalg.vector_norm(planes[:, :3], dim=-1, keepdim=True)
+    return planes / torch.where(n > 1e-12, n, torch.ones_like(n))

@@ -1,0 +1,240 @@
+"""Frame composition: world -> final (H, W, 3) linear image.
+
+Port of the fused tiled path of ``render_engine_tpu/render/frame.py``:
+``render_frame`` -> ``tiled_fused_core`` runs binning, the packed
+candidate rows, K1 (tile raster, two layers), K2 (resolve of the
+texture-budgeted tiles) with the texture override, K3 (fused shade), and
+the compose over the background. The port always takes this path, on the
+CPU as well (the JAX package's jnp golden path, custom shading, draw
+callbacks, tile light lists and shadows are not ported yet).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from render_engine_tpu_torch.math import transforms as T
+from render_engine_tpu_torch.render import lighting as L
+from render_engine_tpu_torch.render import raster_pallas as RP
+from render_engine_tpu_torch.render import skybox as SB
+from render_engine_tpu_torch.render.geometry import (build_triangle_batch,
+                                                     perturb_normal,
+                                                     to_screen)
+from render_engine_tpu_torch.render.raster_jnp import RasterConfig
+from render_engine_tpu_torch.render.shade_pallas import fused_shade
+from render_engine_tpu_torch.render.textures import sample_atlas_rows
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderSettings:
+    width: int = 800
+    height: int = 600
+    max_tris: int = 16384
+    raster: RasterConfig = RasterConfig()
+    max_dir_lights: int = 4
+    max_point_lights: int = 64
+    max_spot_lights: int = 16
+    clear_color: tuple = (0.0, 0.0, 0.0)
+    # atlas sampling of the transparent layer (each layer costs a resolve)
+    texture_transparent: bool = False
+    # fraction of screen tiles whose textured winners are resolved and
+    # sampled (densest textured tiles first); overflow tiles stay untextured
+    texture_tile_budget: float = 1.0
+
+
+def render_frame(world, camera, bank, settings: RenderSettings, *,
+                 cubemap=None, atlas=None, systems=None) -> torch.Tensor:
+    """Deferred-render one frame; float32 (H, W, 3) linear color."""
+    h, w = settings.height, settings.width
+    batch = to_screen(build_triangle_batch(world, bank, camera,
+                                           max_tris=settings.max_tris,
+                                           systems=systems), w, h)
+    ent_attrs = None
+    if systems is not None:
+        from render_engine_tpu_torch.render.render_system import (
+            entity_shade_attrs)
+
+        ent_attrs = entity_shade_attrs(world, systems)
+    lights = L.extract_lights(world, max_dir=settings.max_dir_lights,
+                              max_point=settings.max_point_lights,
+                              max_spot=settings.max_spot_lights)
+    background = SB.background_for(camera, cubemap, h, w,
+                                   settings.clear_color)
+    return tiled_fused_core(batch, lights, bank, settings, camera, width=w,
+                            h_total=h, h_local=h, y_off=0.0,
+                            background=background, ent_attrs=ent_attrs,
+                            atlas=atlas)
+
+
+def _texture_override(res, atlas, tiles_x, th, twd, tids=None,
+                      with_spec=False, with_emis=False, with_norm=False,
+                      with_diss=False):
+    """Per-pixel texture overrides from resolved channels ``res`` (A, NT,
+    th, tw): [rgb | flag] (+ spec / emissive / dissolve deltas, + the
+    normal-mapped normal and flag), channels leading."""
+    a, nt = res.shape[0], res.shape[1]
+    dev = res.device
+    ch = res.reshape(a, nt * th, twd)
+    if tids is None:
+        tids = torch.arange(nt, device=dev)
+    oy = (torch.div(tids, tiles_x, rounding_mode="floor") * th).to(
+        torch.float32)
+    ox = ((tids % tiles_x) * twd).to(torch.float32)
+    py = (oy[:, None, None] + torch.arange(th, dtype=torch.float32,
+                                           device=dev)[None, :, None]) + 0.5
+    px = (ox[:, None, None] + torch.arange(twd, dtype=torch.float32,
+                                           device=dev)[None, None, :]) + 0.5
+    py = py.expand(nt, th, twd).reshape(nt * th, twd)
+    px = px.expand(nt, th, twd).reshape(nt * th, twd)
+
+    x0, y0, x1, y1, x2, y2 = ch[0], ch[1], ch[2], ch[3], ch[4], ch[5]
+    l0 = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)
+    l1 = (x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)
+    l2 = (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)
+    area = l0 + l1 + l2
+    one = torch.ones_like(area)
+    inv_area = 1.0 / torch.where(area.abs() > 1e-12, area, one)
+    w0 = l0 * inv_area * ch[25]
+    w1 = l1 * inv_area * ch[26]
+    w2 = l2 * inv_area * ch[27]
+    denom = w0 + w1 + w2
+    inv_d = 1.0 / torch.where(denom.abs() > 1e-12, denom, one)
+    p0, p1, p2 = w0 * inv_d, w1 * inv_d, w2 * inv_d
+    u = p0 * ch[19] + p1 * ch[21] + p2 * ch[23]
+    v = p0 * ch[20] + p1 * ch[22] + p2 * ch[24]
+    uv = torch.stack([u, v], dim=-1)
+
+    def sample(layer_c, rect_c):
+        return sample_atlas_rows(atlas, ch[layer_c], uv,
+                                 ch[rect_c:rect_c + 4].permute(1, 2, 0))
+
+    def delta(layer_c):
+        smul = sample(layer_c, layer_c + 1)[..., 0]
+        return torch.where(ch[layer_c] >= 0.0, smul - 1.0,
+                           torch.zeros_like(smul))[..., None]
+
+    parts = [sample(35, 36), (ch[35] >= 0.0).to(torch.float32)[..., None]]
+    if with_spec or with_emis or with_diss:
+        parts.append(delta(40))
+    if with_emis or with_diss:
+        parts.append(delta(45))
+    if with_diss:
+        parts.append(delta(59))
+    if with_norm:
+        nrm = torch.stack([p0 * ch[10] + p1 * ch[13] + p2 * ch[16],
+                           p0 * ch[11] + p1 * ch[14] + p2 * ch[17],
+                           p0 * ch[12] + p1 * ch[15] + p2 * ch[18]], dim=-1)
+        nlen = torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
+        nrm = nrm / torch.where(nlen > 1e-12, nlen, torch.ones_like(nlen))
+        nsamp = sample(50, 51)
+        tan = ch[55:58].permute(1, 2, 0)
+        pert = perturb_normal(nrm, tan, ch[58], nsamp)
+        nflag = (ch[50] >= 0.0).to(torch.float32)[..., None]
+        parts.append(torch.where(nflag > 0.0, pert, torch.zeros_like(pert)))
+        parts.append(nflag)
+    out = torch.cat(parts, dim=-1)
+    c = out.shape[-1]
+    return out.permute(2, 0, 1).reshape(c, nt, th, twd)
+
+
+def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
+                     width, h_total, h_local, y_off, background, ent_attrs,
+                     atlas=None) -> torch.Tensor:
+    """Raster + resolve + fused shading over the tiles covering image rows
+    [y_off, y_off + h_local); ``background`` is the matching
+    (h_local, width, 3) rows. Returns the clipped (h_local, width, 3)."""
+    cfg = settings.raster
+    th, twd = cfg.tile_h, cfg.tile_w
+    tiles_x, tiles_y = -(-width // twd), -(-h_local // th)
+    dev = batch.xy.device
+
+    tri_class = RP._tri_class(batch)
+    cand, counts = RP._candidate_table(batch, cfg, tiles_x, tiles_y,
+                                       tri_class)
+    packed = RP._packed_tri_table(batch, bank, tri_class,
+                                  ent_attrs=ent_attrs, atlas=atlas)
+    rows = RP._gather_candidate_rows(packed, cand)  # (NT, K, A)
+    d, wn, s, td, twn, ts = RP._launch(batch, h_local, width, cfg, tri_class,
+                                       two_pass=True, cand=cand,
+                                       counts=counts)
+
+    albedo_override = None
+    if atlas is not None:
+        ntt = s.shape[0]
+        ttb = max(1, int(round(ntt * settings.texture_tile_budget)))
+        with_spec = bank.has_specular_maps()
+        with_emis = bank.has_emissive_maps()
+        with_norm = bank.has_normal_maps()
+        with_diss = bank.has_dissolve_maps()
+        n_base = 7 if with_diss else 6 if with_emis else 5 if with_spec \
+            else 4
+        n_ovr = n_base + (4 if with_norm else 0)
+        tex_ch = [35] + [c for c, on in ((40, with_spec), (45, with_emis),
+                                         (50, with_norm), (59, with_diss))
+                         if on]
+        # tiles with any textured candidate: a superset of textured winners
+        tex_tri = rows[..., tex_ch].amax(dim=-1) >= 0.0
+        tex_cand = ((cand >= 0) & tex_tri).any(dim=1)
+        flags = dict(with_spec=with_spec, with_emis=with_emis,
+                     with_norm=with_norm, with_diss=with_diss)
+
+        def textured(slot):
+            if ttb >= ntt:
+                res = RP.resolve_attributes_pallas(slot, rows)
+                return _texture_override(res, atlas, tiles_x, th, twd,
+                                         **flags)
+            order = torch.argsort((~tex_cand).to(torch.int32), stable=True)
+            sel = order[:ttb]
+            res_sel = RP.resolve_attributes_pallas(
+                slot[sel].contiguous(), rows[sel].contiguous())
+            ovr_sel = _texture_override(res_sel, atlas, tiles_x, th, twd,
+                                        tids=sel, **flags)
+            out = torch.zeros((n_ovr, ntt, th, twd), device=dev)
+            out[:, sel] = ovr_sel
+            return out
+
+        ovr_o = textured(s)
+        if settings.texture_transparent or with_diss:
+            ovr_t = textured(ts)
+        else:
+            ovr_t = torch.zeros_like(ovr_o)
+        albedo_override = torch.cat([ovr_o, ovr_t]).contiguous()
+
+    inv_pv = T.inv44(camera.proj_view())
+    uni_shin = bank.uniform_shininess()
+    shaded = fused_shade(
+        rows, s, ts, d, td, lights, camera.position, inv_pv, tiles_x, width,
+        h_total, pixel_origin=(0.0, y_off), albedo_override=albedo_override,
+        with_norm=atlas is not None and bank.has_normal_maps(),
+        with_diss=atlas is not None and bank.has_dissolve_maps(),
+        spec_packed=uni_shin is None,
+        shin_const=uni_shin if uni_shin is not None else 64.0)
+
+    img = shaded.reshape(8, tiles_y, tiles_x, th, twd).permute(
+        1, 3, 2, 4, 0).reshape(tiles_y * th, tiles_x * twd, 8)[
+        :h_local, :width]
+    return compose(img, background)
+
+
+def compose(img: torch.Tensor, background: torch.Tensor) -> torch.Tensor:
+    """Untiled (H, W, 8) shade output over the background: opaque color
+    where covered, the transparent layer alpha-blended where in front."""
+    color_i, t_lit_i = img[..., 0:3], img[..., 3:6]
+    alpha_i = img[..., 6:7]
+    flags_i = img[..., 7]
+    covered_i = (torch.remainder(flags_i, 2.0) >= 1.0)[..., None]
+    t_front_i = (flags_i >= 2.0)[..., None]
+    base = torch.where(covered_i, color_i, background)
+    out = torch.where(t_front_i, alpha_i * t_lit_i + (1.0 - alpha_i) * base,
+                      base)
+    return out.clamp(0.0, 1.0)
+
+
+def to_srgb_u8(color: torch.Tensor) -> torch.Tensor:
+    """Linear -> sRGB 8-bit."""
+    c = color.clamp(0.0, 1.0)
+    srgb = torch.where(c <= 0.0031308, 12.92 * c,
+                       1.055 * torch.pow(c, 1.0 / 2.4) - 0.055)
+    return (srgb * 255.0 + 0.5).to(torch.uint8)

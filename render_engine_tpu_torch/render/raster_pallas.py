@@ -1,0 +1,367 @@
+"""Tile rasterizer (kernel K1) and attribute resolve (kernel K2).
+
+Port of ``render_engine_tpu/render/raster_pallas.py`` (the module keeps
+the JAX package's name so the two line up). On the GPU both kernels are
+the hand-written CUDA in ``csrc/tile_raster.cu`` and ``csrc/resolve.cu``;
+for CPU tensors each wrapper runs its plain PyTorch version, which loops
+over candidates exactly like the Pallas kernel's ``fori_loop``.
+
+Kernel contracts (unchanged from the JAX package):
+
+* K1 ``tile_raster(data (NT,10,K) f32, ids (NT,1,K) i32, counts (NT,1,3)
+  i32)``: per 8x128 screen tile, march the candidate segments [0, B)
+  opaque, [B, B+BT) transparent, [B+BT, ...) global with trip counts from
+  ``counts``; per pixel center, three edge functions (either winding),
+  |area| > 1e-9, class > 0, NDC depth in [-1, 1]; nearest wins with a
+  strict ``<`` so the first candidate seen wins a tie. Outputs depth
+  (1.0 where empty), winner triangle id (-1) and winner slot, for one
+  layer or (``two_pass``) opaque and transparent layers.
+* K2 ``resolve_attributes(slot (TB,th,tw) i32, rows (TB,K,A) f32)``:
+  ``out[a, t, y, x] = rows[t, slot[t, y, x], a]``, 0 where slot < 0.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from render_engine_tpu_torch import kernels
+from render_engine_tpu_torch.render.geometry import (TriangleBatch,
+                                                     triangle_tangents)
+from render_engine_tpu_torch.render.raster_jnp import (RasterConfig,
+                                                       _bin_triangles)
+
+# packed per-candidate attribute channels (A axis), as in the JAX package:
+#   0:10 x0 y0 x1 y1 x2 y2 z0 z1 z2 cls | 10:19 normals | 19:25 uvs |
+#   25:28 inv_w | 28 material | 29:32 albedo | 32 emissive | 33 alpha |
+#   34 specular (or the packed spec/Ns) | 35 texture layer | 36:40 rect |
+#   40 spec-map layer | 41:45 rect | 45 emissive-map layer | 46:50 rect |
+#   50 normal-map layer | 51:55 rect | 55:58 tangent | 58 handedness |
+#   59 dissolve-map layer | 60:64 rect
+N_ATTR_BASE = 48
+N_ATTR = 56
+N_ATTR_NORM = 64
+
+MAX_TILE_PIXELS = 1024  # K1/K3 blocks hold one tile at <= 4 px a thread
+
+
+def _candidate_table(batch, cfg, tiles_x, tiles_y, tri_class=None):
+    """Bin once: (NT, K) candidate ids (-1 invalid) = [opaque window |
+    transparent window | global list], and (NT, 1, 3) int32 counts."""
+    nt = tiles_x * tiles_y
+    if tri_class is not None:
+        tile_cand, global_list, _, trans_cand, _ = _bin_triangles(
+            batch, cfg, tiles_x, tiles_y, tri_class)
+    else:
+        tile_cand, global_list, _, _ = _bin_triangles(batch, cfg, tiles_x,
+                                                      tiles_y)
+        trans_cand = torch.full((nt, cfg.trans_tile_budget), -1,
+                                dtype=torch.int32, device=tile_cand.device)
+    cand = torch.cat([tile_cand, trans_cand,
+                      global_list[None].expand(nt, cfg.global_budget)], dim=1)
+    n_tile = (tile_cand >= 0).sum(dim=1, dtype=torch.int32)
+    n_trans = (trans_cand >= 0).sum(dim=1, dtype=torch.int32)
+    n_glob = (global_list >= 0).sum(dtype=torch.int32)
+    counts = torch.stack([n_tile, n_trans, n_glob.expand(nt)],
+                         dim=-1)[:, None, :]
+    return cand, counts
+
+
+def _prepare_candidates(batch, cfg, tiles_x, tiles_y, tri_class, cand=None,
+                        counts=None, classed=False):
+    """The raster's per-candidate scalars, channel-leading (NT, 10, K),
+    the candidate triangle ids (NT, 1, K) and the counts."""
+    if cand is None:
+        cand, counts = _candidate_table(batch, cfg, tiles_x, tiles_y,
+                                        tri_class if classed else None)
+    t = batch.budget
+    x, y = batch.xy[..., 0], batch.xy[..., 1]
+    packed = torch.cat([x[:, 0:1], y[:, 0:1], x[:, 1:2], y[:, 1:2],
+                        x[:, 2:3], y[:, 2:3], batch.z, tri_class[:, None]],
+                       dim=1)  # (T, 10)
+    rows = packed[cand.clamp(0, t - 1).long()]  # (NT, K, 10)
+    data = rows.transpose(1, 2).contiguous()
+    ids = torch.where(cand >= 0, cand, torch.full_like(cand, -1))[:, None, :]
+    return data, ids.contiguous(), counts.contiguous()
+
+
+def _packed_tri_table(batch, bank, tri_class, ent_attrs=None, atlas=None):
+    """One (T, A) f32 per-triangle channel table (layout above), A = 48,
+    56 or 64 depending on which texture roles the scene carries."""
+    t = batch.budget
+    dev = batch.xy.device
+    x, y = batch.xy[..., 0], batch.xy[..., 1]
+    mat_safe = batch.material.clamp(0, bank.mat_albedo.shape[0] - 1).long()
+    albedo = bank.mat_albedo[mat_safe]
+    emissive = bank.mat_emissive[mat_safe]
+    alpha = bank.mat_alpha[mat_safe]
+    if bank.uniform_shininess() is not None:
+        specular = bank.mat_specular[mat_safe]
+    else:
+        specular = bank.mat_spec_shin_packed[mat_safe]
+
+    def none_cols():
+        return (torch.full((t,), -1.0, device=dev),
+                torch.zeros((t, 4), device=dev))
+
+    with_emis = with_norm = with_diss = False
+    if atlas is not None:
+        def tex_cols(tex_ids):
+            ts = tex_ids.clamp(0, atlas.num_textures - 1).long()
+            lay = torch.where(tex_ids >= 0,
+                              atlas.tex_layer[ts].to(torch.float32),
+                              torch.full((t,), -1.0, device=dev))
+            return lay, atlas.uv_rect[ts]
+
+        layer, uvs = tex_cols(bank.mat_texture[mat_safe])
+        slayer, suvs = tex_cols(bank.mat_texture_spec[mat_safe])
+        with_emis = bank.has_emissive_maps()
+        with_norm = bank.has_normal_maps()
+        with_diss = bank.has_dissolve_maps()
+        elayer, euvs = (tex_cols(bank.mat_texture_emis[mat_safe])
+                        if with_emis else none_cols())
+        nlayer, nuvs = (tex_cols(bank.mat_texture_norm[mat_safe])
+                        if with_norm else none_cols())
+        dlayer, duvs = (tex_cols(bank.mat_texture_diss[mat_safe])
+                        if with_diss else none_cols())
+    else:
+        uvs = suvs = torch.ones((t, 4), device=dev)
+        layer = slayer = torch.full((t,), -1.0, device=dev)
+        elayer, euvs = none_cols()
+        nlayer, nuvs = none_cols()
+        dlayer, duvs = none_cols()
+    if with_norm:
+        tangent, handed = triangle_tangents(batch)
+    else:
+        tangent = torch.zeros((t, 3), device=dev)
+        handed = torch.ones((t,), device=dev)
+    if ent_attrs is not None:
+        sa = ent_attrs[batch.entity.clamp(0, ent_attrs.shape[0] - 1).long()]
+        unlit, boost, ascale = sa[:, 0] > 0.5, sa[:, 1], sa[:, 5]
+        albedo = albedo * sa[:, 2:5]
+        emissive = torch.where(unlit, torch.clamp(emissive, min=1.0) * boost,
+                               emissive)
+        alpha = torch.clamp(alpha * ascale, 0.0, 1.0)
+    width = (N_ATTR_NORM if (with_norm or with_diss)
+             else (N_ATTR if with_emis else N_ATTR_BASE))
+    return torch.cat([
+        x[:, 0:1], y[:, 0:1], x[:, 1:2], y[:, 1:2], x[:, 2:3], y[:, 2:3],
+        batch.z, tri_class[:, None], batch.normal.reshape(t, 9),
+        batch.uv.reshape(t, 6), batch.inv_w,
+        batch.material.to(torch.float32)[:, None], albedo,
+        emissive[:, None], alpha[:, None], specular[:, None],
+        layer[:, None], uvs, slayer[:, None], suvs, elayer[:, None], euvs,
+        nlayer[:, None], nuvs, tangent, handed[:, None], dlayer[:, None],
+        duvs], dim=1)[:, :width].contiguous()
+
+
+def _gather_candidate_rows(packed, cand):
+    """(T, A) table + (NT, K) ids -> (NT, K, A); empty slots read row 0
+    (never consumed: trip counts and winner slots stay in the prefix)."""
+    return packed[cand.clamp(0, packed.shape[0] - 1).long()].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K1: tile raster
+# ---------------------------------------------------------------------------
+# The JAX reference's compiled arithmetic contracts the edge functions and
+# the depth sum into fused multiply-adds:
+#   l = fma(bx - ax, py - ay, -((by - ay) * (px - ax)))
+#   d = fma(l2, z2, fma(l0, z0, l1 * z1)) / area
+# K1 computes exactly these fused forms (fmaf in the kernel, nothing else
+# contracted), so winners, slots and depths match it bit for bit. The plain
+# version forms each fma in float64: the product of two floats is exact
+# there; the sum is rounded to float64 and then to float32, and the one
+# case where that double rounding differs from the fma's single rounding
+# (the float64 sum lands exactly halfway between two floats) is corrected
+# with the sum's exact error term.
+def _fma(a, b, c):
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    r = s.float()
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)  # exact: s + err == p + c (TwoSum)
+    rd = r.double()
+    other = torch.nextafter(r, torch.where(s > rd, float("inf"),
+                                           float("-inf")).float())
+    od = other.double()
+    halfway = (s - rd) == (od - s)
+    toward = halfway & (err != 0) & ((err > 0) == (od > rd))
+    return torch.where(toward, other, r)
+
+
+def _edge_fma(ax, ay, bx, by, px, py):
+    return _fma(bx - ax, py - ay, -((by - ay) * (px - ax)))
+
+
+def tile_raster_reference(data, ids, counts, *, tiles_x, tile_h, tile_w,
+                          tile_budget, trans_budget, two_pass):
+    """Plain PyTorch K1: the kernel's candidate loop over (NT, th, tw)."""
+    nt, _, k = data.shape
+    dev = data.device
+    tids = torch.arange(nt, device=dev)
+    oy = (torch.div(tids, tiles_x, rounding_mode="floor") * tile_h).to(
+        torch.float32)
+    ox = ((tids % tiles_x) * tile_w).to(torch.float32)
+    py = (torch.arange(tile_h, device=dev, dtype=torch.float32)[None, :, None]
+          + oy[:, None, None]) + 0.5
+    px = (torch.arange(tile_w, device=dev, dtype=torch.float32)[None, None, :]
+          + ox[:, None, None]) + 0.5
+    shape = (nt, tile_h, tile_w)
+    inf = torch.full(shape, float("inf"), device=dev)
+    neg = torch.full(shape, -1, dtype=torch.int32, device=dev)
+    best = [inf, neg, neg] + ([inf, neg, neg] if two_pass else [])
+    cnt = counts[:, 0, :].long()
+    starts = (0, tile_budget, tile_budget + trans_budget)
+    for seg in range(3):
+        n_seg = cnt[:, seg]
+        for j in range(int(n_seg.max()) if nt else 0):
+            kk = starts[seg] + j
+            run = (j < n_seg)[:, None, None]
+            c = [data[:, i, kk][:, None, None] for i in range(10)]
+            x0, y0, x1, y1, x2, y2, z0, z1, z2, cls = c
+            tid = ids[:, 0, kk][:, None, None]
+            l0 = _edge_fma(x1, y1, x2, y2, px, py)
+            l1 = _edge_fma(x2, y2, x0, y0, px, py)
+            l2 = _edge_fma(x0, y0, x1, y1, px, py)
+            area = (l0 + l1) + l2
+            inside = (((l0 >= 0.0) & (l1 >= 0.0) & (l2 >= 0.0))
+                      | ((l0 <= 0.0) & (l1 <= 0.0) & (l2 <= 0.0)))
+            nz = area.abs() > 1e-9
+            inside = inside & nz & (cls > 0.0) & run
+            inv_area = 1.0 / torch.where(nz, area, torch.ones_like(area))
+            d = _fma(l2, z2, _fma(l0, z0, l1 * z1)) * inv_area
+            inside = inside & (d >= -1.0) & (d <= 1.0)
+            layers = ([(inside & (cls < 1.5), 0), (inside & (cls > 1.5), 3)]
+                      if two_pass else [(inside, 0)])
+            for m, o in layers:
+                dm = torch.where(m, d, inf)
+                upd = dm < best[o]
+                best[o] = torch.where(upd, dm, best[o])
+                best[o + 1] = torch.where(upd, tid, best[o + 1])
+                best[o + 2] = torch.where(upd, torch.full_like(neg, kk),
+                                          best[o + 2])
+    outs = []
+    for o in range(0, len(best), 3):
+        outs += [torch.where(best[o + 1] >= 0, best[o],
+                             torch.ones_like(best[o])),
+                 best[o + 1], best[o + 2]]
+    return outs
+
+
+def tile_raster(data, ids, counts, *, tiles_x, tile_h, tile_w, tile_budget,
+                trans_budget, two_pass):
+    """K1. CPU tensors run the plain version; CUDA tensors launch the
+    kernel (csrc/tile_raster.cu)."""
+    kw = dict(tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w,
+              tile_budget=tile_budget, trans_budget=trans_budget,
+              two_pass=two_pass)
+    if data.device.type == "cpu":
+        return tile_raster_reference(data, ids, counts, **kw)
+    nt, _, k = data.shape
+    dev = data.device
+    if tile_h * tile_w > MAX_TILE_PIXELS:
+        raise ValueError(f"tile of {tile_h}x{tile_w} exceeds "
+                         f"{MAX_TILE_PIXELS} pixels")
+    kernels.check(data, "data", torch.float32, (nt, 10, k), dev)
+    kernels.check(ids, "ids", torch.int32, (nt, 1, k), dev)
+    kernels.check(counts, "counts", torch.int32, (nt, 1, 3), dev)
+    n_out = 6 if two_pass else 3
+    outs = [torch.empty((nt, tile_h, tile_w),
+                        dtype=torch.float32 if i % 3 == 0 else torch.int32,
+                        device=dev) for i in range(n_out)]
+    p = [kernels.ptr(o) for o in outs] + [None] * (6 - n_out)
+    kernels.launch("launch_tile_raster", "tile_raster",
+                   kernels.ptr(data), kernels.ptr(ids), kernels.ptr(counts),
+                   *p, nt, k, tiles_x, tile_h, tile_w, tile_budget,
+                   trans_budget, int(two_pass), kernels.stream_ptr(dev))
+    return outs
+
+
+def _launch(batch, height, width, cfg, tri_class, two_pass, cand=None,
+            counts=None, classed=False):
+    """Prepare the candidate block and run K1; tiled (NT, th, tw) outputs."""
+    th, tw = cfg.tile_h, cfg.tile_w
+    tiles_x = -(-width // tw)
+    tiles_y = -(-height // th)
+    data, ids, counts = _prepare_candidates(batch, cfg, tiles_x, tiles_y,
+                                            tri_class, cand, counts,
+                                            classed=classed)
+    return tile_raster(data, ids, counts, tiles_x=tiles_x, tile_h=th,
+                       tile_w=tw, tile_budget=cfg.tile_budget,
+                       trans_budget=cfg.trans_tile_budget,
+                       two_pass=two_pass)
+
+
+def _untile(a, tiles_y, tiles_x, th, tw, height, width):
+    a = a.reshape(tiles_y, tiles_x, th, tw).permute(0, 2, 1, 3)
+    return a.reshape(tiles_y * th, tiles_x * tw)[:height, :width]
+
+
+def rasterize_depth_winner_pallas(batch: TriangleBatch, height: int,
+                                  width: int, cfg=RasterConfig(),
+                                  tri_mask=None):
+    """One-layer raster (the shadow-map mode): (depth, winner) images."""
+    if tri_mask is not None:
+        batch = dataclasses.replace(batch, valid=batch.valid & tri_mask)
+    tri_class = batch.valid.to(torch.float32)
+    tiles_x, tiles_y = -(-width // cfg.tile_w), -(-height // cfg.tile_h)
+    depth, winner, _ = _launch(batch, height, width, cfg, tri_class,
+                               two_pass=False)
+    u = lambda a: _untile(a, tiles_y, tiles_x, cfg.tile_h, cfg.tile_w,  # noqa
+                          height, width)
+    return u(depth), u(winner)
+
+
+def _tri_class(batch):
+    return torch.where(batch.valid,
+                       torch.where(batch.transparent, 2.0, 1.0),
+                       0.0).to(torch.float32)
+
+
+def rasterize_two_pass_pallas(batch: TriangleBatch, height: int, width: int,
+                              cfg=RasterConfig()):
+    """Opaque + transparent layers from one binning and one K1 launch:
+    (depth, winner, t_depth, t_winner) images."""
+    tiles_x, tiles_y = -(-width // cfg.tile_w), -(-height // cfg.tile_h)
+    d, w, _s, td, twi, _ts = _launch(batch, height, width, cfg,
+                                     _tri_class(batch), two_pass=True,
+                                     classed=True)
+    u = lambda a: _untile(a, tiles_y, tiles_x, cfg.tile_h, cfg.tile_w,  # noqa
+                          height, width)
+    return u(d), u(w), u(td), u(twi)
+
+
+# ---------------------------------------------------------------------------
+# K2: attribute resolve
+# ---------------------------------------------------------------------------
+def resolve_attributes_reference(slot_tiled, attrs_rows):
+    """Plain PyTorch K2: direct indexed gather, channels leading."""
+    tb, th, tw = slot_tiled.shape
+    _, k, a = attrs_rows.shape
+    flat = slot_tiled.reshape(tb, th * tw)
+    hit = (flat >= 0) & (flat < k)  # the one-hot matches no row otherwise
+    g = torch.gather(attrs_rows, 1,
+                     torch.where(hit, flat, 0).long()[..., None].expand(
+                         tb, th * tw, a))
+    g = torch.where(hit[..., None], g, torch.zeros_like(g))
+    return g.permute(2, 0, 1).reshape(a, tb, th, tw)
+
+
+def resolve_attributes_pallas(slot_tiled, attrs_rows, cfg=None):
+    """K2: (A, TB, th, tw) winner attributes. CPU tensors run the plain
+    version; CUDA tensors launch csrc/resolve.cu."""
+    if slot_tiled.device.type == "cpu":
+        return resolve_attributes_reference(slot_tiled, attrs_rows)
+    tb, th, tw = slot_tiled.shape
+    _, k, a = attrs_rows.shape
+    dev = slot_tiled.device
+    kernels.check(slot_tiled, "slot", torch.int32, (tb, th, tw), dev)
+    kernels.check(attrs_rows, "rows", torch.float32, (tb, k, a), dev)
+    out = torch.empty((a, tb, th, tw), dtype=torch.float32, device=dev)
+    kernels.launch("launch_resolve", "resolve", kernels.ptr(slot_tiled),
+                   kernels.ptr(attrs_rows), kernels.ptr(out), tb, th * tw, k,
+                   a, kernels.stream_ptr(dev))
+    return out
