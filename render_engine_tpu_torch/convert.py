@@ -17,6 +17,7 @@ from render_engine_tpu_torch.math.camera import Camera
 from render_engine_tpu_torch.models.bank import ModelBank
 from render_engine_tpu_torch.render.geometry import TriangleBatch
 from render_engine_tpu_torch.render.render_system import CompiledSystems
+from render_engine_tpu_torch.render.shadows import ShadowState
 from render_engine_tpu_torch.render.skybox import Starfield
 from render_engine_tpu_torch.render.textures import TextureAtlas
 
@@ -79,3 +80,18 @@ def systems_from_numpy(model_system, sys_table, sys_lov, names,
     return CompiledSystems(model_system=_t(model_system, device),
                            sys_table=_t(sys_table, device),
                            sys_lov=_t(sys_lov, device), names=tuple(names))
+
+
+def shadow_state_from_numpy(maps, light_mats, slot_entity, slot_face, cursor,
+                            tick, resolution, pcf_scale,
+                            device="cpu") -> ShadowState:
+    """A JAX ``ShadowState``'s fields as a port ShadowState (its
+    ``maps_pcf`` table is not needed: the port reads the taps from
+    ``maps``); ``cursor`` and ``tick`` become host integers."""
+    return ShadowState(maps=_t(maps, device),
+                       light_mats=_t(light_mats, device),
+                       slot_entity=_t(slot_entity, device),
+                       slot_face=_t(slot_face, device),
+                       cursor=int(np.asarray(cursor)),
+                       tick=int(np.asarray(tick)),
+                       resolution=int(resolution), pcf_scale=int(pcf_scale))

@@ -17,6 +17,7 @@ import torch
 
 from render_engine_tpu_torch.ecs import changes as C
 from render_engine_tpu_torch.ecs import registry as R
+from render_engine_tpu_torch.logic import random as RND
 from render_engine_tpu_torch.logic.types import (KEY_A, KEY_D, KEY_S,
                                                  KEY_SHIFT, KEY_SPACE, KEY_W,
                                                  EntityType)
@@ -67,19 +68,21 @@ def asteroid_orbit_logic(world, dt, mask, cs):
 
 def mine_producer_logic(world, dt, mask, rng, cs):
     """Every MINE_SPAWN_PERIOD seconds, spawn one mine at a random offset
-    from the first firing producer. One draw feeds both the offset and the
-    velocity (the JAX version draws both from one key)."""
+    from the first firing producer. The offset and the velocity are drawn
+    from the same key ``rng`` (so they share their bits, as in the JAX
+    version), on the host, and go to the device as one upload."""
     timer = world["spawn_timer"] + torch.where(mask, dt, 0.0)
     fire = mask & (timer >= MINE_SPAWN_PERIOD)
     timer = torch.where(fire, torch.zeros_like(timer), timer)
     cs = C.with_update(cs, "spawn_timer", timer, mask)
     any_fire = fire.any()
     src = fire.to(torch.int8).argmax()
-    u = torch.rand(3, generator=rng, device=world.device)
-    offset = -8.0 + 16.0 * u
-    vel = -2.0 + 4.0 * u
-    budget = cs.spawns.budget
     dev = world.device
+    draws = torch.from_numpy(np.concatenate([
+        RND.uniform(rng, (3,), minval=-8.0, maxval=8.0),
+        RND.uniform(rng, (3,), minval=-2.0, maxval=2.0)])).to(dev)
+    offset, vel = draws[:3], draws[3:]
+    budget = cs.spawns.budget
     row = (torch.arange(budget, device=dev) == 0) & any_fire
     return C.queue_spawn(
         cs, world.config.registry, row,
@@ -263,13 +266,27 @@ def build_scene(engine: Engine, num_asteroids: int = 40, seed: int = 42,
 
 def space_config(*, capacity: int = 256, num_asteroids: int = 40,
                  width: int = 800, height: int = 600, max_tris: int = 32768,
-                 spawn_budget: int = 4, enable_shadows: bool = False,
-                 normal_maps: bool = True,
+                 spawn_budget: int = 4, enable_shadows: bool = True,
+                 shadow_resolution: int | None = None,
+                 shadow_max_tris: int | None = None,
+                 shadow_tile_budget: float = 0.28, normal_maps: bool = True,
+                 shadow_update_interval: int | None = None,
+                 shadow_pcf_scale: int | None = None,
+                 shadow_slots: int | None = None,
                  raster_tile_budget: int | None = None,
-                 trans_tile_budget: int | None = None,
-                 collision_large_budget: int | None = None) -> EngineConfig:
-    """The demo's configuration: the JAX package's budgets, minus the
-    shadow settings (shadows are not ported yet)."""
+                 collision_large_budget: int | None = None,
+                 shadow_lov_bias: int | None = None,
+                 trans_tile_budget: int | None = None) -> EngineConfig:
+    """The demo's configuration, with the JAX package's budgets. Shadows
+    are on; their quality follows the target: from 240 px high a 1024^2
+    map, 8192 shadow triangles, an update every 3 frames and 2 slots (the
+    scene's two spot lights); below that (tests) 128^2, 1024 triangles,
+    every frame and 6 slots. Casters take LoV bands 2 coarser."""
+    big = height >= 240
+
+    def pick(value, large, small):
+        return value if value is not None else (large if big else small)
+
     return EngineConfig(
         capacity=capacity, world_length=16384.0, section_length=64.0,
         registry=R.ComponentRegistry(custom=CUSTOM_COMPONENTS),
@@ -278,7 +295,8 @@ def space_config(*, capacity: int = 256, num_asteroids: int = 40,
         render=RenderSettings(
             width=width, height=height, max_tris=max_tris,
             max_point_lights=8, max_spot_lights=8,
-            texture_tile_budget=0.04 if height >= 240 else 0.5,
+            shadow_tile_budget=shadow_tile_budget,
+            texture_tile_budget=0.04 if big else 0.5,
             raster=RasterConfig(
                 tile_budget=(112 if raster_tile_budget is None
                              else raster_tile_budget),
@@ -289,7 +307,14 @@ def space_config(*, capacity: int = 256, num_asteroids: int = 40,
         spawn_budget=spawn_budget,
         build_scene=lambda e: build_scene(e, num_asteroids=num_asteroids,
                                           normal_maps=normal_maps),
-        enable_shadows=enable_shadows)
+        enable_shadows=enable_shadows,
+        shadow_resolution=pick(shadow_resolution, 1024, 128),
+        shadow_max_tris=pick(shadow_max_tris, 8192, 1024),
+        shadow_slots=pick(shadow_slots, 2, 6),
+        shadow_update_interval=pick(shadow_update_interval, 3, 1),
+        **({} if shadow_pcf_scale is None
+           else {"shadow_pcf_scale": shadow_pcf_scale}),
+        shadow_lov_bias=2 if shadow_lov_bias is None else shadow_lov_bias)
 
 
 def space_camera(width: int, height: int, device="cpu"):

@@ -1,14 +1,17 @@
 """Build, load and count the port's CUDA kernels.
 
 The kernels are CUDA C++ sources under ``csrc/`` with a plain C interface.
-``library()`` compiles them on first use with one ``nvcc`` call into
+``library()`` compiles them on first use into
 ``_build/librender_kernels.so`` (sm_90a, ``-fmad=false`` so that the edge
-functions and shading sums round exactly like the plain PyTorch versions)
-and loads it through ``ctypes``. Nothing is built or loaded at import
-time: the CPU tests import every module on machines without ``nvcc``.
+functions and shading sums round exactly like the plain PyTorch versions:
+one ``nvcc -c`` per source, all started together, then one link) and loads
+it through ``ctypes``. Nothing is built or loaded at import time: the CPU
+tests import every module on machines without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else. ``tile_raster`` counts
+every K1 launch; ``tile_raster_one_pass`` also counts those in its one-pass
+(shadow-map) mode.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 LIB_PATH = os.path.join(BUILD_DIR, "librender_kernels.so")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"tile_raster": 0, "resolve": 0, "fused_shade": 0}
+LAUNCHES = {"tile_raster": 0, "tile_raster_one_pass": 0, "resolve": 0,
+            "fused_shade": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,19 +67,38 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile every ``csrc/*.cu`` into one shared library; returns its
-    path. ``verbose`` adds ``-Xptxas -v`` (registers, spills) and prints
-    the compiler's output."""
+    """Compile every ``csrc/*.cu`` (one ``nvcc -c`` each, in parallel) and
+    link them into one shared library; returns its path. ``verbose`` adds
+    ``-Xptxas -v`` (registers, spills) and prints the compiler's output."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    tmp = LIB_PATH + f".{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-I", CSRC, "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+    tag = f".{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src)[:-3] + tag + ".o")
+            for src in sources]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-I",
+         CSRC, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        failed = [log for p, log in zip(procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = LIB_PATH + tag + ".tmp"
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True,
+                              check=False)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout
+                               + link.stderr)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     if verbose:
-        print(proc.stdout + proc.stderr)
+        print("".join(logs))
     os.replace(tmp, LIB_PATH)
     return LIB_PATH
 

@@ -5,11 +5,10 @@ user input, kinematics, out-of-bounds, transform refresh, collisions with
 per-pair callbacks, per-type logic, the frame's ChangeSet, a second
 refresh, and the camera snapped to the user entity.
 
-Randomness: the JAX step derives ``jax.random`` keys from the frame's
-recorded seed. Here the frame's ``torch.Generator`` is seeded from the same
-seed; each random callback receives it. The numbers differ from JAX's
-threefry (a bit-exact threefry is later work), but a run is reproducible
-from its seeds.
+Randomness: as in the JAX step, the frame's key is ``key(rng_seed)`` and
+each random callback gets its own subkey, split off in the JAX order
+(``rng, sub = split(rng)``). Keys and draws are the host-side threefry of
+``logic/random.py``, bit for bit those of ``jax.random``.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ from render_engine_tpu_torch.ecs import registry as R
 from render_engine_tpu_torch.ecs.world import World
 from render_engine_tpu_torch.logic import collision as COL
 from render_engine_tpu_torch.logic import kinematics as K
+from render_engine_tpu_torch.logic import random as RND
 from render_engine_tpu_torch.logic.types import EntityType, InputState
 from render_engine_tpu_torch.world import culling
 from render_engine_tpu_torch.world import grid as G
@@ -75,8 +75,7 @@ def make_step(types: Sequence[EntityType], *, logic_radius=None,
              model_aabb_min, model_aabb_max):
         dev = world.device
         dt = float(np.float32(dt))
-        rng = torch.Generator(device=dev)
-        rng.manual_seed(int(inputs.rng_seed))
+        rng = RND.key(inputs.rng_seed)
 
         world = world.replace(
             flags=world["flags"] & ~(R.FLAG_HAS_MOVED | R.FLAG_HAS_ROTATED))
@@ -136,17 +135,20 @@ def make_step(types: Sequence[EntityType], *, logic_radius=None,
                     wants = _accepts_other_type(fn)
                     for j in range(pairs):
                         tmask = hitm[:, j] & world.of_type(t.index)
-                        args = (world, others[:, j], tmask) \
-                            + ((rng,) if with_rng else ()) + (cs,)
+                        sub = ()
+                        if with_rng:
+                            rng, key = RND.split(rng)
+                            sub = (key,)
                         kw = {"other_type": otypes[:, j]} if wants else {}
-                        cs = fn(*args, **kw)
+                        cs = fn(world, others[:, j], tmask, *sub, cs, **kw)
 
         for t in types:
             tmask = active & world.of_type(t.index)
             if t.logic is not None:
                 cs = t.logic(world, dt, tmask, cs)
             if t.random_logic is not None:
-                cs = t.random_logic(world, dt, tmask, rng, cs)
+                rng, sub = RND.split(rng)
+                cs = t.random_logic(world, dt, tmask, sub, cs)
 
         cs = C.with_despawn(cs, kill_oob)
         logic_dirty = torch.zeros(world.capacity, dtype=torch.bool,

@@ -4,7 +4,8 @@ Port of ``render_engine_tpu/logic/types.py``. Callback signatures are the
 JAX package's, over tensors:
 
   logic(world, dt, mask, cs) -> cs
-  random_logic(world, dt, mask, rng, cs) -> cs   (rng: a torch.Generator)
+  random_logic(world, dt, mask, rng, cs) -> cs   (rng: a threefry key,
+                                                  see logic/random.py)
   collision(world, other_idx, mask, cs, other_type=None) -> cs
   user_input(world, camera, inputs, dt, cs) -> (cs, camera)
 
@@ -50,7 +51,7 @@ PACKED_INPUT_LEN = 2 * NUM_KEYS + 5
 @dataclasses.dataclass(frozen=True)
 class InputState:
     """One frame's input: keys bool[NUM_KEYS], mouse_delta (2,) f32 radians,
-    rng_seed (uint32, seeds the frame's generator), prev_keys (engine-
+    rng_seed (uint32, the frame's threefry seed), prev_keys (engine-
     maintained). Host-built inputs hold numpy arrays; ``to_device`` gives
     the tensor form the step consumes (``rng_seed`` stays a Python int)."""
 

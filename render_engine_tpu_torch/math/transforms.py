@@ -96,17 +96,41 @@ def look_at(eye: torch.Tensor, target: torch.Tensor, up: torch.Tensor
     return torch.stack(rows)
 
 
-def perspective(fov_y_rad: float, aspect: float, near: float, far: float,
+def _matrix(entries: dict, like: torch.Tensor) -> torch.Tensor:
+    """The (4, 4) float32 identity on ``like``'s device with the given
+    {(row, col): float or 0-d tensor} entries written over it."""
+    m = torch.eye(4, dtype=torch.float32, device=like.device)
+    for (r, c), v in entries.items():
+        m[r, c] = v
+    return m
+
+
+def perspective(fov_y_rad, aspect: float, near: float, far,
                 device=None) -> torch.Tensor:
-    """GL-style perspective projection, NDC z in [-1, 1]."""
-    t = 1.0 / torch.tan(0.5 * torch.tensor(fov_y_rad, dtype=torch.float32))
-    m = torch.zeros((4, 4), dtype=torch.float32)
-    m[0, 0] = t / torch.tensor(aspect, dtype=torch.float32)
-    m[1, 1] = t
-    m[2, 2] = (far + near) / (near - far)
-    m[2, 3] = 2.0 * far * near / (near - far)
-    m[3, 2] = -1.0
-    return m.to(device)
+    """GL-style perspective projection, NDC z in [-1, 1]. ``fov_y_rad``
+    and ``far`` may be 0-d float32 tensors (the light cameras); the matrix
+    is built where ``fov_y_rad`` lives, then moved to ``device``."""
+    fov = torch.as_tensor(fov_y_rad, dtype=torch.float32)
+    t = 1.0 / torch.tan(0.5 * fov)
+    m = _matrix({(0, 0): t / torch.tensor(aspect, dtype=torch.float32),
+                 (1, 1): t,
+                 (2, 2): (far + near) / (near - far),
+                 (2, 3): 2.0 * far * near / (near - far),
+                 (3, 2): -1.0, (3, 3): 0.0}, t)
+    return m if device is None else m.to(device)
+
+
+def orthographic(left, right, bottom, top, near, far) -> torch.Tensor:
+    """GL-style orthographic projection (the directional-light shadow
+    camera); the bounds may be 0-d float32 tensors."""
+    like = next((v for v in (left, right, bottom, top, near, far)
+                 if isinstance(v, torch.Tensor)), torch.zeros(()))
+    return _matrix({(0, 0): 2.0 / (right - left),
+                    (1, 1): 2.0 / (top - bottom),
+                    (2, 2): -2.0 / (far - near),
+                    (0, 3): -(right + left) / (right - left),
+                    (1, 3): -(top + bottom) / (top - bottom),
+                    (2, 3): -(far + near) / (far - near)}, like)
 
 
 def direction_from_yaw_pitch(yaw: torch.Tensor, pitch: torch.Tensor

@@ -3,21 +3,25 @@
 Port of the fused tiled path of ``render_engine_tpu/render/frame.py``:
 ``render_frame`` -> ``tiled_fused_core`` runs binning, the packed
 candidate rows, K1 (tile raster, two layers), K2 (resolve of the
-texture-budgeted tiles) with the texture override, K3 (fused shade), and
-the compose over the background. The port always takes this path, on the
-CPU as well (the JAX package's jnp golden path, custom shading, draw
-callbacks, tile light lists and shadows are not ported yet).
+texture-budgeted tiles) with the texture override, the per-slot PCF
+factor tiles of the shadow maps, K3 (fused shade), and the compose over
+the background. The port always takes this path, on the CPU as well (the
+JAX package's jnp golden path, custom shading, draw callbacks and tile
+light lists are not ported yet).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from render_engine_tpu_torch.math import transforms as T
 from render_engine_tpu_torch.render import lighting as L
 from render_engine_tpu_torch.render import raster_pallas as RP
+from render_engine_tpu_torch.render import shadows as SHD
 from render_engine_tpu_torch.render import skybox as SB
 from render_engine_tpu_torch.render.geometry import (build_triangle_batch,
                                                      perturb_normal,
@@ -39,14 +43,19 @@ class RenderSettings:
     clear_color: tuple = (0.0, 0.0, 0.0)
     # atlas sampling of the transparent layer (each layer costs a resolve)
     texture_transparent: bool = False
-    # fraction of screen tiles whose textured winners are resolved and
-    # sampled (densest textured tiles first); overflow tiles stay untextured
+    # fractions of screen tiles whose PCF factors (per shadow slot, among
+    # the tiles inside the slot's light frustum) and textured winners are
+    # computed, densest tiles first; overflow tiles stay lit / untextured
+    shadow_tile_budget: float = 1.0
     texture_tile_budget: float = 1.0
 
 
 def render_frame(world, camera, bank, settings: RenderSettings, *,
-                 cubemap=None, atlas=None, systems=None) -> torch.Tensor:
-    """Deferred-render one frame; float32 (H, W, 3) linear color."""
+                 cubemap=None, atlas=None, shadow_state=None,
+                 systems=None) -> torch.Tensor:
+    """Deferred-render one frame; float32 (H, W, 3) linear color.
+    ``shadow_state``: a ``shadows.ShadowState`` whose maps PCF-attenuate
+    the lights that own its slots (opaque layer)."""
     h, w = settings.height, settings.width
     batch = to_screen(build_triangle_batch(world, bank, camera,
                                            max_tris=settings.max_tris,
@@ -65,7 +74,7 @@ def render_frame(world, camera, bank, settings: RenderSettings, *,
     return tiled_fused_core(batch, lights, bank, settings, camera, width=w,
                             h_total=h, h_local=h, y_off=0.0,
                             background=background, ent_attrs=ent_attrs,
-                            atlas=atlas)
+                            atlas=atlas, shadow_state=shadow_state)
 
 
 def _texture_override(res, atlas, tiles_x, th, twd, tids=None,
@@ -139,9 +148,148 @@ def _texture_override(res, atlas, tiles_x, th, twd, tids=None,
     return out.permute(2, 0, 1).reshape(c, nt, th, twd)
 
 
+def _tile_origins(nt, tiles_x, th, twd, y_off):
+    """Each tile's top-left pixel (oy + y_off, ox) as float32 (NT,)."""
+    tids = np.arange(nt)
+    oy = (tids // tiles_x * th).astype(np.float32) + np.float32(y_off)
+    return oy, (tids % tiles_x * twd).astype(np.float32)
+
+
+# The tiling's NDC constants are computed on the host in numpy, which rounds
+# each division like the JAX package's device code (CUDA turns a division
+# by a host scalar into a multiply by its reciprocal), and cached on the
+# device per tiling.
+@functools.lru_cache(maxsize=8)
+def _tile_corner_xy(nt, tiles_x, th, twd, width, h_total, y_off, device):
+    """(NT, 8, 2) float32 camera-NDC (x, y) of each tile's 8 frustum
+    corners: the screen rect, twice (near and far depth)."""
+    f32 = np.float32
+    oy, ox = _tile_origins(nt, tiles_x, th, twd, y_off)
+    x0 = ox / f32(width) * f32(2.0) - f32(1.0)
+    x1 = (ox + f32(twd)) / f32(width) * f32(2.0) - f32(1.0)
+    y0 = f32(1.0) - oy / f32(h_total) * f32(2.0)
+    y1 = f32(1.0) - (oy + f32(th)) / f32(h_total) * f32(2.0)
+    return torch.tensor(np.stack([np.stack([x0, x1, x0, x1] * 2, axis=1),
+                                  np.stack([y0, y0, y1, y1] * 2, axis=1)],
+                                 axis=-1), device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def _pixel_ndc(nt, tiles_x, th, twd, width, h_total, y_off, k, device):
+    """(2, NT, ceil(th/k), ceil(tw/k)) float32 camera-NDC (x, y) of every
+    k-th pixel center of each tile."""
+    f32 = np.float32
+    oy, ox = _tile_origins(nt, tiles_x, th, twd, y_off)
+    py = oy[:, None, None] + np.arange(0, th, k, dtype=f32)[None, :, None] \
+        + f32(0.5)
+    px = ox[:, None, None] + np.arange(0, twd, k, dtype=f32)[None, None, :] \
+        + f32(0.5)
+    shape = (nt, py.shape[1], px.shape[2])
+    return torch.tensor(np.stack([
+        np.broadcast_to(px, shape) / f32(width) * f32(2.0) - f32(1.0),
+        f32(1.0) - np.broadcast_to(py, shape) / f32(h_total) * f32(2.0)]),
+        device=device)
+
+
+def _tile_frustum_inputs(d, wn, tiles_x, th, twd, width, h_total, y_off):
+    """Per-tile covered-pixel counts (NT,) and conservative corners (NT, 8,
+    4): the tile's screen rect x its covered depth range, in camera NDC
+    homogeneous coordinates."""
+    nt = d.shape[0]
+    cov = wn >= 0
+    ncov = cov.sum(dim=(1, 2), dtype=torch.int32)
+    dmin = torch.where(cov, d, 1e9).amin(dim=(1, 2))
+    dmax = torch.where(cov, d, -1e9).amax(dim=(1, 2))
+    cxy = _tile_corner_xy(nt, tiles_x, th, twd, width, h_total,
+                          float(y_off), d.device)
+    cz = torch.stack([dmin] * 4 + [dmax] * 4, dim=1)
+    corners = torch.cat([cxy, cz[..., None], torch.ones_like(cz)[..., None]],
+                        dim=-1)
+    return ncov, corners
+
+
+def _frustum_need(m, corners, ncov):
+    """Tiles that may hold a pixel inside the light frustum ``m`` =
+    light_mat @ inv_pv, (NT,), or (S, NT) for a stack of (S, 4, 4): a tile
+    is culled only when all 8 corners fail one clip plane (a linear test on
+    the homogeneous corners, so it bounds the projective hull), and culled
+    tiles are exactly lit."""
+    clip = torch.matmul(corners, m.transpose(-1, -2).unsqueeze(-3))
+    x, y, z, w = clip.unbind(-1)
+    culled = (((x + w) < 0).all(-1) | ((x - w) > 0).all(-1)
+              | ((y + w) < 0).all(-1) | ((y - w) > 0).all(-1)
+              | ((z - w) > 0).all(-1) | (w <= 0).all(-1))
+    return ~culled & (ncov > 0)
+
+
+def shadow_tile_overflow(shadow, d, wn, tiles_x, th, twd, width, h_total,
+                         inv_pv, y_off, frac) -> torch.Tensor:
+    """Max over mapped slots of (frustum-needed tiles - the per-slot tile
+    budget): the exact count of tiles whose PCF degraded to lit."""
+    nt = d.shape[0]
+    tb = max(1, int(round(nt * frac)))
+    ncov, corners = _tile_frustum_inputs(d, wn, tiles_x, th, twd, width,
+                                         h_total, y_off)
+    need = _frustum_need(T.mm44(shadow.light_mats, inv_pv), corners,
+                         ncov).sum(dim=1, dtype=torch.int32)
+    over = torch.where(shadow.slot_entity >= 0, (need - tb).clamp(min=0), 0)
+    return over.amax().to(torch.int32)
+
+
+def _per_slot_factor_tiles(shadow, d, wn, tiles_x, th, twd, width, h_total,
+                           inv_pv, y_off, frac):
+    """Compact per-slot PCF factor tiles (S, TB, th, tw) and the (S, NT)
+    int32 inverse map (tile -> its row in the slot's buffer, -1 = lit).
+
+    Per slot, only tiles that conservatively intersect the slot's light
+    frustum are candidates (tiles outside it are exactly lit); the densest
+    of them fill a budget of round(NT * frac) rows, and the overflow stays
+    lit (``shadow_tile_overflow``). Factors are computed every
+    ``pcf_scale``-th pixel straight from light-clip coordinates (camera NDC
+    through light_mat @ inv_pv) and upsampled in k x k blocks. Unmapped
+    slots give all-lit rows and an empty map. All slots run batched, so
+    nothing here waits on the device."""
+    nt = d.shape[0]
+    n_slots = shadow.slots
+    tb = max(1, int(round(nt * frac)))
+    ncov, corners = _tile_frustum_inputs(d, wn, tiles_x, th, twd, width,
+                                         h_total, y_off)
+    k = shadow.pcf_scale
+    ds = d[:, ::k, ::k] if k > 1 else d
+    ndc = _pixel_ndc(nt, tiles_x, th, twd, width, h_total, float(y_off), k,
+                     d.device)
+
+    m_all = T.mm44(shadow.light_mats, inv_pv)  # camera NDC -> light clip
+    need_all = _frustum_need(m_all, corners, ncov)  # (S, NT)
+    key_all = torch.where(need_all, ncov[None, :], -1)
+    sel = torch.argsort(-key_all, dim=1, stable=True)[:, :tb]  # (S, TB)
+    dsub = ds[sel][:, None]  # (S, 1, TB, sh, sw)
+    nx, ny = ndc[0][sel][:, None], ndc[1][sel][:, None]
+    # the four clip rows at once, in the fused multiply-adds that XLA
+    # contracts m0*nx + m1*ny + m2*d + m3 into
+    mm = m_all[:, :, :, None, None, None]  # (S, 4, 4, 1, 1, 1)
+    clip = RP._fma(mm[:, :, 2], dsub,
+                   RP._fma(mm[:, :, 0], nx, mm[:, :, 1] * ny)) + mm[:, :, 3]
+    f = SHD.pcf_factor_from_clip(shadow, None, *clip.unbind(1))
+    if k > 1:
+        f = f.repeat_interleave(k, dim=-2).repeat_interleave(k, dim=-1)
+        f = f[..., :th, :twd]
+    # rows past the needed tiles are unmapped (their factors are never
+    # read)
+    rows = torch.where(need_all.gather(1, sel),
+                       torch.arange(tb, dtype=torch.int32, device=d.device),
+                       -1)
+    inv = torch.full((n_slots, nt), -1, dtype=torch.int32,
+                     device=d.device).scatter_(1, sel, rows)
+    active = shadow.slot_entity >= 0
+    f = torch.where(active[:, None, None, None], f, 1.0)
+    inv = torch.where(active[:, None], inv, -1)
+    return f.contiguous(), inv.contiguous()
+
+
 def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
                      width, h_total, h_local, y_off, background, ent_attrs,
-                     atlas=None) -> torch.Tensor:
+                     atlas=None, shadow_state=None) -> torch.Tensor:
     """Raster + resolve + fused shading over the tiles covering image rows
     [y_off, y_off + h_local); ``background`` is the matching
     (h_local, width, 3) rows. Returns the clipped (h_local, width, 3)."""
@@ -203,10 +351,18 @@ def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
         albedo_override = torch.cat([ovr_o, ovr_t]).contiguous()
 
     inv_pv = T.inv44(camera.proj_view())
+    sft = sfi = sent = None
+    if shadow_state is not None:
+        sft, sfi = _per_slot_factor_tiles(
+            shadow_state, d, wn, tiles_x, th, twd, width, h_total, inv_pv,
+            y_off, settings.shadow_tile_budget)
+        sent = shadow_state.slot_entity
     uni_shin = bank.uniform_shininess()
     shaded = fused_shade(
         rows, s, ts, d, td, lights, camera.position, inv_pv, tiles_x, width,
-        h_total, pixel_origin=(0.0, y_off), albedo_override=albedo_override,
+        h_total, slot_factor_tiles=sft, slot_factor_inv=sfi,
+        slot_entity=sent, pixel_origin=(0.0, y_off),
+        albedo_override=albedo_override,
         with_norm=atlas is not None and bank.has_normal_maps(),
         with_diss=atlas is not None and bank.has_dissolve_maps(),
         spec_packed=uni_shin is None,

@@ -52,16 +52,26 @@ def _scatter_set(size: int, index: torch.Tensor, values: torch.Tensor
 
 
 def build_triangle_batch(world: World, bank: ModelBank, camera, *,
-                         max_tris: int, systems=None) -> TriangleBatch:
+                         max_tris: int, systems=None, instance_mask=None,
+                         apply_lov: bool = True, proj_view=None,
+                         depth_only: bool = False,
+                         lov_bias: int = 0) -> TriangleBatch:
     """Cull, LoV-select and expand the visible instances into triangles.
     ``systems``: compiled render systems (routing, LoV gating, alpha-scale
-    transparency)."""
+    transparency). ``instance_mask``: bool[CAP] restricting the entities
+    drawn. ``proj_view`` replaces the camera's matrix (a light camera);
+    LoV bands still follow the camera's distance, shifted ``lov_bias``
+    bands coarser. ``depth_only``: positions only (the shadow raster):
+    normals, uvs, materials and transparency are zeros, and the near clip
+    carries only the clip coordinates."""
     cap = world.capacity
     dev = world.device
-    pv = camera.proj_view()
+    pv = camera.proj_view() if proj_view is None else proj_view
     planes = T.frustum_planes(pv)
 
     vis = world.alive & (world["model_id"] >= 0)
+    if instance_mask is not None:
+        vis = vis & instance_mask
     msys = None
     if systems is not None:
         nm = systems.model_system.shape[0]
@@ -71,15 +81,17 @@ def build_triangle_batch(world: World, bank: ModelBank, camera, *,
                                         world["aabb_max"])
 
     mid = world["model_id"]
-    dist = torch.linalg.vector_norm(world["position"] - camera.position[None],
-                                    dim=-1)
-    lov_mid = bank.lov_model_id(mid, dist, camera.draw_distance)
-    if msys is None:
-        mid = lov_mid
-    else:
-        ns = systems.sys_lov.shape[0]
-        lov_on = systems.sys_lov[msys.clamp(0, ns - 1).long()] > 0.5
-        mid = torch.where(lov_on & (msys >= 0), lov_mid, mid)
+    if apply_lov:
+        dist = torch.linalg.vector_norm(
+            world["position"] - camera.position[None], dim=-1)
+        lov_mid = bank.lov_model_id(mid, dist, camera.draw_distance,
+                                    band_bias=lov_bias)
+        if msys is None:
+            mid = lov_mid
+        else:
+            ns = systems.sys_lov.shape[0]
+            lov_on = systems.sys_lov[msys.clamp(0, ns - 1).long()] > 0.5
+            mid = torch.where(lov_on & (msys >= 0), lov_mid, mid)
     mid_safe = mid.clamp(0, bank.num_models - 1).long()
 
     counts = torch.where(vis, bank.tri_count[mid_safe],
@@ -118,31 +130,43 @@ def build_triangle_batch(world: World, bank: ModelBank, camera, *,
 
     trow = bank.tri_packed[tri_idx]
     tv = trow[:, 0:3].to(torch.int64)
-    vrow = bank.vert_packed[tv]  # (T, 3, 8)
-    v_obj = vrow[..., 0:3]
+    if depth_only:
+        v_obj = bank.vertices[tv]  # (T, 3, 3)
+    else:
+        vrow = bank.vert_packed[tv]  # (T, 3, 8)
+        v_obj = vrow[..., 0:3]
     w_pos = T.quat_rotate(quat[:, None, :], v_obj * scale[:, None, :]) \
         + pos_e[:, None, :]
-    n_obj = vrow[..., 3:6]
-    uv = vrow[..., 6:8]
-    material = trow[:, 3].to(torch.int32)
-    safe_scale = torch.where(scale.abs() > 1e-12, scale,
-                             torch.ones_like(scale))
-    w_nrm = T.quat_rotate(quat[:, None, :], n_obj / safe_scale[:, None, :])
+    if depth_only:
+        material = torch.zeros(max_tris, dtype=torch.int32, device=dev)
+        w_nrm = torch.zeros((max_tris, 3, 3), device=dev)
+        uv = torch.zeros((max_tris, 3, 2), device=dev)
+        transparent = torch.zeros(max_tris, dtype=torch.bool, device=dev)
+    else:
+        n_obj = vrow[..., 3:6]
+        uv = vrow[..., 6:8]
+        material = trow[:, 3].to(torch.int32)
+        safe_scale = torch.where(scale.abs() > 1e-12, scale,
+                                 torch.ones_like(scale))
+        w_nrm = T.quat_rotate(quat[:, None, :],
+                              n_obj / safe_scale[:, None, :])
 
     homo = torch.cat([w_pos, torch.ones_like(w_pos[..., :1])], dim=-1)
     clip = torch.einsum("ij,tnj->tni", pv, homo)
 
-    transparent = (trow[:, 4] > 0.5) | ((ent_flags & R.FLAG_TRANSPARENT) != 0)
-    if msys is not None:
-        ns = systems.sys_table.shape[0]
-        ascale = systems.sys_table[msys.clamp(0, ns - 1).long(), 5]
-        ent_l = ent.long()
-        transparent = transparent | ((ascale[ent_l] < 1.0)
-                                     & (msys[ent_l] >= 0))
+    if not depth_only:
+        transparent = (trow[:, 4] > 0.5) \
+            | ((ent_flags & R.FLAG_TRANSPARENT) != 0)
+        if msys is not None:
+            ns = systems.sys_table.shape[0]
+            ascale = systems.sys_table[msys.clamp(0, ns - 1).long(), 5]
+            ent_l = ent.long()
+            transparent = transparent | ((ascale[ent_l] < 1.0)
+                                         & (msys[ent_l] >= 0))
 
     (clip, w_pos, w_nrm, uv, material, ent, transparent,
      valid) = _near_clip(clip, w_pos, w_nrm, uv, material, ent, transparent,
-                         valid)
+                         valid, depth_only=depth_only)
 
     w = clip[..., 3]
     valid = valid & (w > 1e-6).all(dim=-1)
@@ -156,12 +180,15 @@ def build_triangle_batch(world: World, bank: ModelBank, camera, *,
                          transparent=transparent, total_requested=total)
 
 
-def _near_clip(clip, w_pos, w_nrm, uv, material, ent, transparent, valid):
+def _near_clip(clip, w_pos, w_nrm, uv, material, ent, transparent, valid,
+               depth_only: bool = False):
     """Near-plane clipping (z_clip >= -w). A triangle with one vertex
     outside becomes a quad: its second triangle goes to an unused budget
     row (dropped when none is free); two outside -> one clipped triangle;
-    all outside -> dropped."""
-    big = torch.cat([clip, w_pos, w_nrm, uv], dim=-1)  # (T, 3, 12)
+    all outside -> dropped. ``depth_only`` clips the clip coordinates alone
+    and passes positions, normals and uvs through unclipped."""
+    big = clip if depth_only else torch.cat([clip, w_pos, w_nrm, uv],
+                                            dim=-1)  # (T, 3, 4 or 12)
     nch = big.shape[-1]
     s = clip[..., 2] + clip[..., 3]
     inside = s > 0.0
@@ -223,8 +250,12 @@ def _near_clip(clip, w_pos, w_nrm, uv, material, ent, transparent, valid):
     meta_buf = torch.cat([meta0, meta0.new_zeros(1, 4)])
     meta_buf[dest] = meta
     meta_o = meta_buf[:t_budget]
-    return (big_o[..., 0:4], big_o[..., 4:7], big_o[..., 7:10],
-            big_o[..., 10:12], meta_o[:, 0].to(torch.int32),
+    if depth_only:
+        parts = (big_o, w_pos, w_nrm, uv)
+    else:
+        parts = (big_o[..., 0:4], big_o[..., 4:7], big_o[..., 7:10],
+                 big_o[..., 10:12])
+    return (*parts, meta_o[:, 0].to(torch.int32),
             meta_o[:, 1].to(torch.int32), meta_o[:, 2] > 0.5,
             meta_o[:, 3] > 0.5)
 

@@ -46,16 +46,18 @@ N_ATTR_NORM = 64
 MAX_TILE_PIXELS = 1024  # K1/K3 blocks hold one tile at <= 4 px a thread
 
 
-def _candidate_table(batch, cfg, tiles_x, tiles_y, tri_class=None):
+def _candidate_table(batch, cfg, tiles_x, tiles_y, tri_class=None,
+                     with_dropped=False):
     """Bin once: (NT, K) candidate ids (-1 invalid) = [opaque window |
-    transparent window | global list], and (NT, 1, 3) int32 counts."""
+    transparent window | global list], and (NT, 1, 3) int32 counts; with
+    ``with_dropped`` also the binning's dropped-candidate count."""
     nt = tiles_x * tiles_y
     if tri_class is not None:
-        tile_cand, global_list, _, trans_cand, _ = _bin_triangles(
+        tile_cand, global_list, _, trans_cand, dropped = _bin_triangles(
             batch, cfg, tiles_x, tiles_y, tri_class)
     else:
-        tile_cand, global_list, _, _ = _bin_triangles(batch, cfg, tiles_x,
-                                                      tiles_y)
+        tile_cand, global_list, _, dropped = _bin_triangles(
+            batch, cfg, tiles_x, tiles_y)
         trans_cand = torch.full((nt, cfg.trans_tile_budget), -1,
                                 dtype=torch.int32, device=tile_cand.device)
     cand = torch.cat([tile_cand, trans_cand,
@@ -65,6 +67,8 @@ def _candidate_table(batch, cfg, tiles_x, tiles_y, tri_class=None):
     n_glob = (global_list >= 0).sum(dtype=torch.int32)
     counts = torch.stack([n_tile, n_trans, n_glob.expand(nt)],
                          dim=-1)[:, None, :]
+    if with_dropped:
+        return cand, counts, dropped
     return cand, counts
 
 
@@ -277,6 +281,8 @@ def tile_raster(data, ids, counts, *, tiles_x, tile_h, tile_w, tile_budget,
                    kernels.ptr(data), kernels.ptr(ids), kernels.ptr(counts),
                    *p, nt, k, tiles_x, tile_h, tile_w, tile_budget,
                    trans_budget, int(two_pass), kernels.stream_ptr(dev))
+    if not two_pass:
+        kernels.LAUNCHES["tile_raster_one_pass"] += 1
     return outs
 
 

@@ -1,8 +1,6 @@
 """Engine configuration (port of ``render_engine_tpu/runtime/config.py``).
 
-Shadows, history recording and the replay player are not ported yet:
-``enable_shadows`` is kept so scenes can ask for them, and ``Engine``
-refuses it.
+History recording and the replay player are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,4 +34,18 @@ class EngineConfig:
     collision_large_budget: int = 32
     build_scene: Optional[Callable] = None  # build_scene(engine) -> None
     lov_fractions: Optional[Sequence[float]] = None
+
+    # shadows: up to shadow_slots maps of shadow_resolution^2, at most one
+    # new map per update, an update every shadow_update_interval frames
     enable_shadows: bool = False
+    shadow_resolution: int = 1024
+    shadow_max_tris: int = 16384
+    shadow_slots: int = 6
+    # PCF factors every k-th pixel, upsampled in k x k blocks
+    shadow_pcf_scale: int = 3
+    # what casts: a bool[CAP] mask, a callable fn(world) -> bool[CAP], or
+    # None for every model-bearing entity
+    shadow_caster_mask: object = None
+    shadow_update_interval: int = 1
+    # LoV bands the shadow casters shift coarser
+    shadow_lov_bias: int = 0

@@ -19,10 +19,13 @@ def aabb_in_frustum(planes: torch.Tensor, mn: torch.Tensor,
 
 
 def within_distance(center: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
-                    radius: float) -> torch.Tensor:
-    """True where an AABB lies within ``radius`` of ``center``."""
+                    radius) -> torch.Tensor:
+    """True where an AABB lies within ``radius`` (a float or a 0-d float32
+    tensor) of ``center``."""
     clamped = torch.minimum(torch.maximum(center[None, :], mn), mx)
     d2 = ((clamped - center[None, :]) ** 2).sum(dim=-1)
+    if isinstance(radius, torch.Tensor):
+        return d2 <= radius * radius
     r = torch.tensor(radius, dtype=torch.float32)
     return d2 <= float(r * r)
 
