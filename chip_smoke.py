@@ -32,10 +32,25 @@ Phases (any failure exits non-zero; no phase catches its own):
              (6 step, 7 render) must be 0.
 The last three lines are the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and {"ok": true, "device": {...}}.
+
+Each kernel's record carries its bound (render_engine_tpu_torch/
+kernel_bounds.py, from the captured inputs) and K2 the time of one
+torch.gather computing the same values. The kernels phase also runs
+synthetic cases made with numpy from a seed: K1 in both modes on an
+adversarial candidate table (exact), K3 with every pixel covered in both
+layers and with none covered (1e-5).
+
+    python3 chip_smoke.py --earlier DIR
+
+also builds the kernels of DIR/render_engine_tpu_torch/csrc (an earlier
+checkout) and times them on the same captured inputs in turns (earlier,
+current, current, earlier); their time goes into the records' earlier_ms,
+which is null without the option.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -68,14 +83,47 @@ KERNELS = {  # record name -> (launch-count key, source, TPU kernel)
                     "render_engine_tpu/render/shade_pallas.py:249"),
 }
 DROP_KEYS = 13  # 6 step counters and 7 render counters with shadows
+LIVE_BINS = (0, 1, 9, 17, 33, 65, 129, 257)  # K1 live candidates a tile
 
 
 def log(*a):
     print(*a, flush=True)
 
 
+def device_ms(fn, reps):
+    """The device's ms per call: ``reps`` calls enqueued behind a sleeping
+    kernel, so that the host's cost of issuing them is hidden, timed by
+    CUDA events; the median of 3 such runs."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10 ** 7)
+    b.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 1e7 / a.elapsed_time(b)
+    runs = []
+    for _ in range(3):
+        torch.cuda._sleep(int(cycles_per_ms * (2.0 * reps * host_ms + 1.0)))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        runs.append(a.elapsed_time(b) / reps)
+    return statistics.median(runs)
+
+
 def cuda_ms(fn, reps):
-    """Median of ``reps`` single-call times in ms, by CUDA events."""
+    """Median of ``reps`` single-call times in ms, by CUDA events (the
+    host's cost of issuing the call included)."""
     import torch
 
     fn()  # warm
@@ -146,6 +194,202 @@ class Plain:
             setattr(mod, name, fn)
 
 
+class Library:
+    """Route the kernel wrappers' launches to another loaded library."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        from render_engine_tpu_torch import kernels
+
+        self.saved = kernels.library()
+        kernels._lib = self.lib
+        return self
+
+    def __exit__(self, *exc):
+        from render_engine_tpu_torch import kernels
+
+        kernels._lib = self.saved
+
+
+def kernel_ms(name, kern, earlier):
+    """The kernel's device ms (see device_ms); with an earlier
+    library, in turns earlier, current, current, earlier, and then also the
+    earlier kernel's ms (each the mean of its two turns)."""
+    if earlier is None:
+        return device_ms(kern, 20), None
+    turns = []
+    for which in ("earlier", "current", "current", "earlier"):
+        if which == "earlier":
+            with Library(earlier):
+                turns.append(device_ms(kern, 20))
+        else:
+            turns.append(device_ms(kern, 20))
+    log(f"[kernels] {name} in turns (earlier, current, current, earlier): "
+        f"{', '.join(f'{t:.4f}' for t in turns)} ms")
+    return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+
+
+def live_histogram(counts, k, tile_budget, trans_budget):
+    from render_engine_tpu_torch import kernel_bounds as KB
+
+    per_tile = KB.k1_live(counts, k, tile_budget, trans_budget).sum(1)
+    bins = [int(((per_tile >= lo) & (per_tile < hi)).sum())
+            for lo, hi in zip(LIVE_BINS, LIVE_BINS[1:])]
+    return ", ".join(f"[{lo},{hi}): {n}" for lo, hi, n in
+                     zip(LIVE_BINS, LIVE_BINS[1:], bins)) + (
+        f"; max {int(per_tile.max())}, mean {float(per_tile.double().mean()):.1f}")
+
+
+def synthetic_k1(two_pass, seed, dev):
+    """An adversarial K1 table, 16 x 8 tiles of 8x128 with B = 112, BT = 64
+    and a full global list of 32: small triangles, vertices on pixel
+    centres, slivers (collinear, and 1e-3 and 1e-6 off; short, and long
+    ones starting just past a pixel centre on their line), coordinates up
+    to 1e6 and beyond 2^24, NaN coordinates and exact depth ties (a
+    candidate repeated under another id); every fourth tile has full
+    windows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    tiles_x, tiles_y, th, tw = 16, 8, 8, 128
+    bud, tbud, glob = 112, 64, 32
+    k, nt = bud + tbud + glob, tiles_x * tiles_y
+    ox = ((np.arange(nt) % tiles_x) * tw)[:, None].astype(np.float64)
+    oy = ((np.arange(nt) // tiles_x) * th)[:, None].astype(np.float64)
+    cx = ox + rng.uniform(-6, tw + 6, (nt, k))
+    cy = oy + rng.uniform(-6, th + 6, (nt, k))
+    v = np.stack([cx, cy] * 3, axis=1) + rng.uniform(-5, 5, (nt, 6, k))
+    kind = rng.integers(0, 8, (nt, k))
+    # vertices on pixel centres: edges run through centres
+    on = kind == 1
+    v = np.where(on[:, None], np.floor(v) + 0.5, v)
+    # slivers: the third vertex on (or just off) the first two's line
+    sl = kind == 2
+    length = rng.uniform(5, 400, (nt, k))
+    ang = rng.uniform(0, 2 * np.pi, (nt, k))
+    off = rng.choice([0.0, 1e-3, 1e-6], (nt, k))
+    ex, ey = np.cos(ang), np.sin(ang)
+    bx, by = v[:, 0] + length * ex, v[:, 1] + length * ey
+    mx = 0.5 * (v[:, 0] + bx) - off * ey
+    my = 0.5 * (v[:, 1] + by) + off * ex
+    for i, arr in ((2, bx), (3, by), (4, mx), (5, my)):
+        v[:, i] = np.where(sl, arr, v[:, i])
+    # long slivers on a line through a pixel centre, starting just past it
+    # (the rounded edge test can accept centres beyond the vertex box)
+    ls = kind == 7
+    px0, py0 = ox + np.floor(cx - ox) + 0.5, oy + np.floor(cy - oy) + 0.5
+    start = rng.uniform(0.5, 20, (nt, k))
+    far = 10.0 ** rng.uniform(1, 6, (nt, k))
+    ax, ay = px0 + start * ex, py0 + start * ey
+    long_sliver = (ax, ay, ax + far * ex, ay + far * ey,
+                   ax + 0.5 * far * ex - off * far * ey,
+                   ay + 0.5 * far * ey + off * far * ex)
+    for i, arr in enumerate(long_sliver):
+        v[:, i] = np.where(ls, arr, v[:, i])
+    # huge coordinates: one vertex far away, up to 1e6 or beyond 2^24
+    for kd, scale in ((3, 1e6), (4, 4e7)):
+        far = kind == kd
+        which = rng.integers(0, 3, (nt, k))
+        for c in range(3):
+            m = far & (which == c)
+            v[:, 2 * c] = np.where(m, rng.uniform(-scale, scale, (nt, k)),
+                                   v[:, 2 * c])
+            v[:, 2 * c + 1] = np.where(m, rng.uniform(-scale, scale,
+                                                      (nt, k)), v[:, 2 * c + 1])
+    z = rng.uniform(-1.2, 1.2, (nt, 3, k))
+    cls = (rng.integers(1, 3, (nt, k)) if two_pass
+           else np.ones((nt, k))).astype(np.float64)
+    cls[rng.random((nt, k)) < 0.05] = 0.0
+    data = np.concatenate([v, z, cls[:, None]], axis=1).astype(np.float32)
+    nan = kind == 5
+    data[:, 0][nan] = np.nan
+    ids = (np.arange(nt)[:, None] * k + np.arange(k)[None]).astype(np.int32)
+    # exact ties: a candidate repeats its predecessor under another id
+    tie = kind == 6
+    tie[:, 0] = False
+    src = np.where(tie, np.arange(k)[None] - 1, np.arange(k)[None])
+    data = np.take_along_axis(data, src[:, None, :], axis=2)
+    # the global list: the same 32 big triangles in every tile
+    g = rng.uniform([-600, -300] * 3, [2648, 364] * 3, (glob, 6)).T
+    data[:, :6, bud + tbud:] = g[None].astype(np.float32)
+    data[:, 6:9, bud + tbud:] = rng.uniform(-1.2, 1.2, (3, glob))[None]
+    data[:, 9, bud + tbud:] = 1.0
+    ids[:, bud + tbud:] = nt * k + np.arange(glob)
+    n0 = np.where(np.arange(nt) % 4 == 0, bud, rng.integers(0, bud + 1, nt))
+    n1 = (np.where(np.arange(nt) % 4 == 0, tbud,
+                   rng.integers(0, tbud + 1, nt)) if two_pass
+          else np.zeros(nt, np.int64))
+    counts = np.stack([n0, n1, np.full(nt, glob)], axis=1)[:, None, :]
+    args = [torch.from_numpy(data).to(dev),
+            torch.from_numpy(ids[:, None, :].copy()).to(dev),
+            torch.from_numpy(counts.astype(np.int32)).to(dev)]
+    kw = dict(tiles_x=tiles_x, tile_h=th, tile_w=tw, tile_budget=bud,
+              trans_budget=tbud, two_pass=two_pass)
+    return args, kw
+
+
+def synthetic_k3(a3, kw3, covered, seed):
+    """K3 on the captured frame's lights, camera, overrides and slot
+    factors, with every pixel covered in both layers (random slots, depths
+    in [-0.99, 0.99]) or none. Each tile's rows are attribute rows that
+    covered pixels of the frame referenced, moved onto one triangle that
+    encloses the tile, so every pixel's barycentrics stay in [0, 1]."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    rows, s_o, s_t, d_o, d_t, *rest = a3
+    nt, k, _ = rows.shape
+    th, tw = s_o.shape[1], s_o.shape[2]
+    dev = rows.device
+    cov = s_o >= 0
+    t_idx = torch.arange(nt, device=dev)[:, None, None].expand_as(s_o)[cov]
+    good = rows[t_idx, s_o[cov].long()]
+    pick = torch.from_numpy(rng.integers(0, good.shape[0], (nt, k))).to(dev)
+    syn = good[pick].clone()
+    tids = torch.arange(nt, device=dev)
+    ox = ((tids % kw3["tiles_x"]) * tw).float()[:, None]
+    oy = (torch.div(tids, kw3["tiles_x"], rounding_mode="floor")
+          * th).float()[:, None]
+    jit = torch.from_numpy(rng.uniform(0, 50, (nt, k, 6))).float().to(dev)
+    syn[:, :, 0] = ox - 200 - jit[..., 0]
+    syn[:, :, 1] = oy - 200 - jit[..., 1]
+    syn[:, :, 2] = ox + 3 * tw + 400 + jit[..., 2]
+    syn[:, :, 3] = oy - 200 - jit[..., 3]
+    syn[:, :, 4] = ox - 200 - jit[..., 4]
+    syn[:, :, 5] = oy + 3 * th + 400 + jit[..., 5]
+    shape = (nt, th, tw)
+    if covered:
+        so = torch.from_numpy(rng.integers(0, k, shape).astype(np.int32))
+        st = torch.from_numpy(rng.integers(0, k, shape).astype(np.int32))
+        do = torch.from_numpy(rng.uniform(-0.99, 0.99, shape)).float()
+        dt = torch.from_numpy(rng.uniform(-0.99, 0.99, shape)).float()
+    else:
+        so = st = torch.full(shape, -1, dtype=torch.int32)
+        do = dt = torch.ones(shape)
+    return ([syn.contiguous(), so.to(dev), st.to(dev), do.to(dev),
+             dt.to(dev), *rest], kw3)
+
+
+def k2_gather(slot, rows):
+    """K2's values from one torch.gather: rows with one zero row appended,
+    channels leading, empty slots pointed at the zero row (the index is
+    built here, outside the timed call)."""
+    import torch
+
+    tb, th, tw = slot.shape
+    _, k, a = rows.shape
+    table = torch.cat([rows, rows.new_zeros(tb, 1, a)], dim=1).permute(
+        2, 0, 1).contiguous()  # (A, TB, K + 1)
+    flat = slot.reshape(tb, th * tw).long()
+    idx = torch.where((flat >= 0) & (flat < k), flat, k)[None].expand(
+        a, tb, th * tw).contiguous()
+    return lambda: [torch.gather(table, 2, idx).reshape(a, tb, th, tw)]
+
+
 def phase_build():
     from render_engine_tpu_torch import kernels
 
@@ -156,12 +400,14 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s")
 
 
-def phase_kernels(eng):
+def phase_kernels(eng, earlier=None):
     """Frames 0-2, then frame 3 with every kernel call's inputs captured;
-    each kernel against its plain version on those inputs. Returns
+    each kernel against its plain version on those inputs, its bound and
+    (K2) its one-call yardstick; then the synthetic cases. Returns
     per-kernel records."""
     import torch
 
+    from render_engine_tpu_torch import kernel_bounds as KB
     from render_engine_tpu_torch.render import raster_pallas as RP
     from render_engine_tpu_torch.render import shade_pallas as SP
 
@@ -195,7 +441,9 @@ def phase_kernels(eng):
     for name, (a, kw) in (("K1 one-pass", (a1s, kw1s)), ("K1", (a1, kw1))):
         log(f"[kernels] {name} inputs: data {tuple(a[0].shape)}, counts max "
             f"{a[2][:, 0].max(0).values.tolist()}, two_pass "
-            f"{kw['two_pass']}")
+            f"{kw['two_pass']}; live candidates a tile: "
+            + live_histogram(a[2], a[0].shape[2], kw["tile_budget"],
+                             kw["trans_budget"]))
     log(f"[kernels] K2 inputs: slot {tuple(a2[0].shape)}, rows "
         f"{tuple(a2[1].shape)}")
     log(f"[kernels] K3 inputs: rows {tuple(a3[0].shape)}, ltab "
@@ -205,39 +453,83 @@ def phase_kernels(eng):
         f"{tuple(kw3['sfi'].shape)} with {int((kw3['sfi'] >= 0).sum())} "
         "mapped tiles")
 
+    # name, tolerance, kernel, plain version, work, one-call yardstick
     cases = [
         ("tile_raster_one_pass", 0.0,
          lambda: RP.tile_raster(*a1s, **kw1s),
-         lambda: RP.tile_raster_reference(*a1s, **kw1s)),
+         lambda: RP.tile_raster_reference(*a1s, **kw1s),
+         KB.tile_raster_work(*a1s, **kw1s), None),
         ("tile_raster", 0.0,
          lambda: RP.tile_raster(*a1, **kw1),
-         lambda: RP.tile_raster_reference(*a1, **kw1)),
+         lambda: RP.tile_raster_reference(*a1, **kw1),
+         KB.tile_raster_work(*a1, **kw1), None),
         ("resolve", 0.0,
          lambda: [RP.resolve_attributes_pallas(*a2)],
-         lambda: [RP.resolve_attributes_reference(*a2)]),
+         lambda: [RP.resolve_attributes_reference(*a2)],
+         KB.resolve_work(*a2), k2_gather(*a2)),
         ("fused_shade", 1e-5,
          lambda: [SP.shade_tiles(*a3, **kw3)],
-         lambda: [SP.fused_shade_reference(*a3, **kw3)]),
+         lambda: [SP.fused_shade_reference(*a3, **kw3)],
+         KB.fused_shade_work(*a3, **kw3), None),
     ]
     rec = {}
-    for name, tol, kern, plain in cases:
+    for name, tol, kern, plain, work, library in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        err = max_abs(got, want)
-        if tol == 0.0:
-            ok = all(torch.equal(g, w) for g, w in zip(got, want))
-        else:
-            ok = all(torch.allclose(g, w, rtol=tol, atol=tol)
-                     for g, w in zip(got, want))
-        ms = cuda_ms(kern, 20)
+        err = check_close(name, got, want, tol)
+        ms, earlier_ms = kernel_ms(name, kern, earlier)
+        call_ms = cuda_ms(kern, 20)
         plain_ms = cuda_ms(plain, 3)
+        library_ms = None
+        if library is not None:
+            check_close(f"{name} (torch.gather)", library(), want, 0.0)
+            library_ms = device_ms(library, 20)
+        bound_ms, bound_by = KB.bound(work["bytes"], work["ops"])
         log(f"[kernels] {name}: max_abs_err {err:.3g} (tolerance {tol}) "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
-        if not ok:
-            raise RuntimeError(f"{name} disagrees with its plain version "
-                               f"(max abs err {err})")
-        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            f"kernel {ms:.4f} ms (one call with its host cost "
+            f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms"
+            + ("" if library_ms is None else f", torch.gather "
+               f"{library_ms:.4f} ms")
+            + ("" if earlier_ms is None else f", earlier {earlier_ms:.4f} ms")
+            + f"; bound {bound_ms:.4f} ms by {bound_by} ({work}), share "
+            f"{bound_ms / ms:.3f}")
+        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         share_of_bound=bound_ms / ms, library_ms=library_ms,
+                         earlier_ms=earlier_ms)
+
+    synthetic = [(f"synthetic K1 two_pass={tp}", 0.0, *synthetic_k1(tp, 3 + tp, a1[0].device),
+                  RP.tile_raster, RP.tile_raster_reference)
+                 for tp in (False, True)]
+    synthetic += [(f"synthetic K3 {'all' if c else 'none'} covered", 1e-5,
+                   *synthetic_k3(a3, kw3, c, 5), lambda *a, **kw: [
+                       SP.shade_tiles(*a, **kw)],
+                   lambda *a, **kw: [SP.fused_shade_reference(*a, **kw)])
+                  for c in (True, False)]
+    for name, tol, args, kw, kern, plain in synthetic:
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = check_close(name, got, want, tol)
+        log(f"[kernels] {name}: max_abs_err {err:.3g} (tolerance {tol}), "
+            f"kernel {device_ms(lambda: kern(*args, **kw), 5):.4f} ms")
     return rec
+
+
+def check_close(name, got, want, tol):
+    """Max abs error; raise unless equal (tol 0) or within rtol = atol =
+    tol."""
+    import torch
+
+    err = max_abs(got, want)
+    if tol == 0.0:
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+    else:
+        ok = all(torch.allclose(g, w, rtol=tol, atol=tol)
+                 for g, w in zip(got, want))
+    if not ok:
+        raise RuntimeError(f"{name} disagrees with its plain version "
+                           f"(max abs err {err})")
+    return err
 
 
 def phase_frame(eng):
@@ -404,6 +696,11 @@ def phase_slice(eng):
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--earlier", metavar="DIR",
+                    help="an earlier checkout whose kernels to time in "
+                         "turns with the current ones")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
@@ -412,25 +709,43 @@ def main() -> int:
     import render_engine_tpu_torch  # noqa: F401  (fails outside the repo)
     from render_engine_tpu_torch.demo.space_scene import build_space_engine
 
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        f"CUDA {torch.version.cuda}, {smi}")
     phase_build()
+    earlier = None
+    if args.earlier:
+        from render_engine_tpu_torch import kernels
+
+        src = os.path.join(args.earlier, "render_engine_tpu_torch", "csrc")
+        earlier = kernels.load(kernels.build(
+            csrc=src, lib_path=os.path.join(args.earlier, "_build",
+                                            "librender_kernels.so")))
+        log(f"[build] earlier kernels from {src}")
 
     t0 = time.perf_counter()
     eng = build_space_engine(device="cuda", **SLICE)
     log(f"[slice] engine built in {time.perf_counter() - t0:.1f} s: "
         f"{SLICE}")
-    rec = phase_kernels(eng)
+    rec = phase_kernels(eng, earlier)
     phase_frame(eng)
     phase_small()
     launches = phase_slice(eng)
+    frames = WARMUP + TIMED
+    # per frame: the two-pass main raster once, the one-pass shadow raster
+    # on map frames (tile_raster counts both modes)
+    per_frame = {"tile_raster": (launches["tile_raster"]
+                                 - launches["tile_raster_one_pass"]) / frames,
+                 "tile_raster_one_pass": launches["tile_raster_one_pass"]
+                 / frames, "resolve": launches["resolve"] / frames,
+                 "fused_shade": launches["fused_shade"] / frames}
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
     kern = [dict(name=n, route="cuda", source=src, replaces=rep,
-                 launches=launches[key], **rec[n])
+                 launches=launches[key], launches_per_frame=per_frame[n],
+                 **rec[n])
             for n, (key, src, rep) in KERNELS.items()]
     log(json.dumps({"kernels": kern}))
     log(smi)

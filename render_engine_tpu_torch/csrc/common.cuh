@@ -24,10 +24,10 @@ __device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
   return (x < lo) ? lo : ((x > hi) ? hi : x);
 }
 
-// 1 / sqrt(x), correctly rounded in both steps (the reference's rsqrt)
-__device__ __forceinline__ float rsqrt_rn(float x) {
-  return 1.0f / sqrtf(x);
-}
+// 1 / sqrt(x) as PyTorch's CUDA rsqrt computes it (rsqrtf, within 2 ulp),
+// so that a kernel follows its plain version on the card; the JAX
+// reference's rsqrt may differ in the last bits
+__device__ __forceinline__ float rsqrt_pt(float x) { return rsqrtf(x); }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename K>

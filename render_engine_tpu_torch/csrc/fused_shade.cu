@@ -1,13 +1,26 @@
 // K3: the fused shade.
 //
 // Replaces render_engine_tpu/render/shade_pallas.py::_shade_kernel (run
-// through fused_shade). One block shades one screen tile; each of its 256
-// threads owns 4 of the tile's pixels and, for the opaque and then the
-// transparent layer:
+// through fused_shade). One block shades one screen tile in two passes.
+//
+// Pass A: each of the 256 threads reads the four slot / depth planes at its
+// pixels p = j * 256 + thread (j < 4; neighbouring lanes on neighbouring
+// addresses, so every load and store of a warp covers whole 128-byte
+// lines), writes plane 7 (flags: bit0 opaque covered, bit1 transparent in
+// front) and the constant values of every uncovered layer (rgb 0, and
+// alpha 1 on the transparent layer), and compacts the covered (pixel,
+// layer) items into a work list in shared memory: a warp ballot per row of
+// pixels and a scan over the block's warps, opaque items first, each layer
+// in pixel order (render/shade_pallas.py::shade_work_list mirrors it). A
+// tile with nothing covered ends there: in the black space scene most do.
+//
+// Pass B: the threads take the work list one item each, so every lane of a
+// warp runs a light loop, whichever pixels of the tile are covered. For its
+// item a thread:
 //   1. reads its winner's attribute row straight from `rows` (K2's
 //      resolve, done in place: the per-pixel channel images never exist);
 //   2. interpolates perspective-correct barycentrics, the normal
-//      (normalised by 1/sqrt) and decodes channel 34 (spec strength, or
+//      (normalised by rsqrt) and decodes channel 34 (spec strength, or
 //      the packed (strength, Ns) pair);
 //   3. applies the texture overrides: albedo, the spec / emissive /
 //      dissolve deltas and the normal-mapped normal;
@@ -17,24 +30,29 @@
 //      light list: dir / point / spot, attenuation, radius cutoff, smooth
 //      spot cone, ndh^shin; on the opaque layer each light's per-slot PCF
 //      factors multiply in, picked through the inverse map inv[s, tile];
-//   6. applies the diffuse floor, the emissive bypass and the coverage.
-// Output (8, NT, th, tw) = [lit rgb | t_lit rgb | alpha | flags], flags
-// bit0 = opaque covered, bit1 = transparent in front.
+//   6. applies the diffuse floor and the emissive bypass, and stores its
+//      layer's planes.
+// Output (8, NT, th, tw) = [lit rgb | t_lit rgb | alpha | flags]; every
+// element is written once, by pass A or by pass B.
 //
-// What bounds it on an H100: the light loop's arithmetic (about 60 float
-// operations per light and pixel, with one powf) and the row reads (35 of
-// A floats per covered pixel and layer). The light table (20 x 28 floats
-// in the demo) is staged in shared memory, so a light's columns are
-// broadcast reads; the rows are read from global memory through L1/L2
-// (K x A floats a tile, 53 KB at K = 208, A = 64: too large to stage in
-// 48 KB of static shared memory, and each row is read by several pixels).
-// Uncovered pixels skip both layers outright, which replaces the
-// reference's per-tile "any pixel covered" gate.
+// What bounds it on an H100: memory, at the frame's shapes: 48 bytes a
+// pixel of planes in and out, against about 60 float operations per
+// covered item and light. The old design walked 4 pixels a thread one after
+// another and ran the light loop for a warp with one covered lane while 31
+// idled, twice (one inlined copy per layer); the work list keeps the lanes
+// busy and instantiates one layer's shade once. The light table and the
+// scene constants (inverse proj-view, camera, origin) sit in shared memory,
+// read as broadcasts. The attribute rows are read through L1: a warp's
+// items are neighbouring pixels, mostly of one triangle, so its loads of a
+// channel hit the same few lines.
 //
 // Rounding: the library is built with -fmad=false and every expression
 // keeps the reference's order of operations, so the kernel follows the
-// plain PyTorch version op for op; they differ only where JAX uses rsqrt
-// (here 1/sqrtf) and in powf's last bits.
+// plain PyTorch version op for op, as PyTorch computes it on the card:
+// rsqrt from rsqrtf, powf, and the NDC terms' division by the buffer size
+// as a multiplication by its reciprocal. Against the JAX reference and the
+// plain version on the CPU these differ in the last bits, which the
+// specular exponent amplifies: hence the 1e-5 tolerance.
 
 #include "common.cuh"
 
@@ -42,6 +60,9 @@ namespace rek {
 namespace {
 
 constexpr int kLCol = 28;  // packed light-table row width (shade_pallas.py)
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxItems = 2 * kThreads * kMaxPix;
+constexpr int kScene = 21;  // ipv (16), camera (3), pixel origin (2)
 
 struct ShadeArgs {
   const float* rows;  // (nt, k, a)
@@ -66,45 +87,49 @@ struct ShadeArgs {
   float shin_const, diffuse_floor;
 };
 
-struct Lit {
-  float r, g, b, alpha;
-};
-
-// One layer of one pixel (covered): the body of the reference's
-// shade_layer for a single pixel centre (px, py).
-__device__ Lit shade_pixel(const ShadeArgs& A, const float* sl, int t, int p,
-                           int slot, float depth, float px, float py,
-                           bool use_shadows, int ovr_base, int n_iter,
-                           const float* ipv, float cx, float cy, float cz,
-                           float ox, float oy) {
+// One covered item: pixel p of tile t on `layer` (0 opaque, 1 transparent):
+// the body of the reference's shade_layer for a single pixel centre.
+// `sl` is the light table, `sc` the scene constants, both in shared memory.
+__device__ void shade_item(const ShadeArgs& A, const float* sl,
+                           const float* sc, int t, int p, int layer,
+                           int n_iter) {
   const int npx = A.th * A.tw;
+  const size_t pix = static_cast<size_t>(t) * npx + p;
+  const int slot = layer ? A.s_t[pix] : A.s_o[pix];
+  const float depth = layer ? A.d_t[pix] : A.d_o[pix];
+  const bool use_shadows = layer == 0 && A.n_slots > 0;
+  const int ovr_base = layer ? A.ovr_chans : 0;
+  const float py = (static_cast<float>(p / A.tw) +
+                    static_cast<float>((t / A.tiles_x) * A.th)) + 0.5f;
+  const float px = (static_cast<float>(p % A.tw) +
+                    static_cast<float>((t % A.tiles_x) * A.tw)) + 0.5f;
   const float* ch =
       A.rows + (static_cast<size_t>(t) * A.k + min(slot, A.k - 1)) * A.a;
   // --- interpolation (_interp) ---
-  const float x0 = ch[0], y0 = ch[1], x1 = ch[2], y1 = ch[3];
-  const float x2 = ch[4], y2 = ch[5];
+  const float x0 = __ldg(ch + 0), y0 = __ldg(ch + 1), x1 = __ldg(ch + 2);
+  const float y1 = __ldg(ch + 3), x2 = __ldg(ch + 4), y2 = __ldg(ch + 5);
   const float l0 = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1);
   const float l1 = (x0 - x2) * (py - y2) - (y0 - y2) * (px - x2);
   const float l2 = (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0);
   const float area = (l0 + l1) + l2;
   const float inv_area = 1.0f / (fabsf(area) > 1e-12f ? area : 1.0f);
-  const float w0 = (l0 * inv_area) * ch[25];
-  const float w1 = (l1 * inv_area) * ch[26];
-  const float w2 = (l2 * inv_area) * ch[27];
+  const float w0 = (l0 * inv_area) * __ldg(ch + 25);
+  const float w1 = (l1 * inv_area) * __ldg(ch + 26);
+  const float w2 = (l2 * inv_area) * __ldg(ch + 27);
   const float denom = (w0 + w1) + w2;
   const float inv_d = 1.0f / (fabsf(denom) > 1e-12f ? denom : 1.0f);
   const float p0 = w0 * inv_d, p1 = w1 * inv_d, p2 = w2 * inv_d;
-  float nx = (p0 * ch[10] + p1 * ch[13]) + p2 * ch[16];
-  float ny = (p0 * ch[11] + p1 * ch[14]) + p2 * ch[17];
-  float nz = (p0 * ch[12] + p1 * ch[15]) + p2 * ch[18];
-  const float nl = rsqrt_rn(max_nan((nx * nx + ny * ny) + nz * nz, 1e-24f));
+  float nx = (p0 * __ldg(ch + 10) + p1 * __ldg(ch + 13)) + p2 * __ldg(ch + 16);
+  float ny = (p0 * __ldg(ch + 11) + p1 * __ldg(ch + 14)) + p2 * __ldg(ch + 17);
+  float nz = (p0 * __ldg(ch + 12) + p1 * __ldg(ch + 15)) + p2 * __ldg(ch + 18);
+  const float nl = rsqrt_pt(max_nan((nx * nx + ny * ny) + nz * nz, 1e-24f));
   nx = nx * nl;
   ny = ny * nl;
   nz = nz * nl;
-  float ar = ch[29], ag = ch[30], ab = ch[31];
-  float emissive = ch[32];
-  float alpha = ch[33];
-  float spec_k = ch[34];
+  float ar = __ldg(ch + 29), ag = __ldg(ch + 30), ab = __ldg(ch + 31);
+  float emissive = __ldg(ch + 32);
+  float alpha = __ldg(ch + 33);
+  float spec_k = __ldg(ch + 34);
   float shin = A.shin_const;
   if (A.spec_packed) {
     const float hq = floorf(spec_k * (1.0f / 4096.0f));
@@ -132,23 +157,25 @@ __device__ Lit shade_pixel(const ShadeArgs& A, const float* sl, int t, int p,
     }
   }
   // --- world position from depth ---
-  const float ndc_x = ((px + ox) / A.width) * 2.0f - 1.0f;
-  const float ndc_y = 1.0f - ((py + oy) / A.height) * 2.0f;
+  // PyTorch's CUDA division by a Python float multiplies by its reciprocal
+  const float ndc_x = ((px + sc[19]) * (1.0f / A.width)) * 2.0f - 1.0f;
+  const float ndc_y = 1.0f - ((py + sc[20]) * (1.0f / A.height)) * 2.0f;
   float c[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    c[r] = ((ipv[r * 4 + 0] * ndc_x + ipv[r * 4 + 1] * ndc_y) +
-            ipv[r * 4 + 2] * depth) + ipv[r * 4 + 3];
+    c[r] = ((sc[r * 4 + 0] * ndc_x + sc[r * 4 + 1] * ndc_y) +
+            sc[r * 4 + 2] * depth) + sc[r * 4 + 3];
   }
   const float inv_w = 1.0f / (fabsf(c[3]) > 1e-12f ? c[3] : 1.0f);
   const float wx = c[0] * inv_w, wy = c[1] * inv_w, wz = c[2] * inv_w;
-  float vx = cx - wx, vy = cy - wy, vz = cz - wz;
-  const float vl = rsqrt_rn(max_nan((vx * vx + vy * vy) + vz * vz, 1e-24f));
+  float vx = sc[16] - wx, vy = sc[17] - wy, vz = sc[18] - wz;
+  const float vl = rsqrt_pt(max_nan((vx * vx + vy * vy) + vz * vz, 1e-24f));
   vx = vx * vl;
   vy = vy * vl;
   vz = vz * vl;
   // --- Blinn-Phong over the lights ---
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
+#pragma unroll 1
   for (int i = 0; i < n_iter; ++i) {
     int li = i;
     if (A.tlist != nullptr) {
@@ -174,7 +201,7 @@ __device__ Lit shade_pixel(const ShadeArgs& A, const float* sl, int t, int p,
     const float intensity = kind > 1.5f ? spot_i : 1.0f;
     const float ndl = max_nan((nx * lx + ny * ly) + nz * lz, 0.0f);
     const float hx = lx + vx, hy = ly + vy, hz = lz + vz;
-    const float hl = rsqrt_rn(max_nan((hx * hx + hy * hy) + hz * hz, 1e-24f));
+    const float hl = rsqrt_pt(max_nan((hx * hx + hy * hy) + hz * hz, 1e-24f));
     const float ndh = max_nan(((nx * hx + ny * hy) + nz * hz) * hl, 0.0f);
     const float spec = (ndl > 0.0f ? powf(ndh, shin) : 0.0f) * spec_k;
     float s = atten * intensity;
@@ -199,58 +226,119 @@ __device__ Lit shade_pixel(const ShadeArgs& A, const float* sl, int t, int p,
     cg = ag * emissive;
     cb = ab * emissive;
   }
-  return Lit{cr, cg, cb, alpha};
+  const size_t plane = static_cast<size_t>(A.nt) * npx;
+  float* out = A.out + pix;
+  if (layer == 0) {
+    out[0 * plane] = cr;
+    out[1 * plane] = cg;
+    out[2 * plane] = cb;
+  } else {
+    out[3 * plane] = cr;
+    out[4 * plane] = cg;
+    out[5 * plane] = cb;
+    out[6 * plane] = alpha;
+  }
 }
 
-__global__ void __launch_bounds__(kThreads) fused_shade_kernel(ShadeArgs A) {
+// 4 blocks of 256 threads an SM (64 registers a thread): pass A keeps 16 KB
+// of plane loads in flight an SM, several times what the memory's latency
+// needs; pass B's light loop needs the registers.
+__global__ void __launch_bounds__(kThreads, 4) fused_shade_kernel(ShadeArgs A) {
   extern __shared__ float sl[];  // (nl, kLCol) light table
+  __shared__ float sc[kScene];
+  __shared__ short items[kMaxItems];
+  __shared__ int wcount[kMaxPix][2][kWarps];
   const int t = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int npx = A.th * A.tw;
+  const size_t base = static_cast<size_t>(t) * npx;
+  const size_t plane = static_cast<size_t>(A.nt) * npx;
+
+  // --- pass A: flags, uncovered layers, ballots ---
+  unsigned bal[kMaxPix][2];
+#pragma unroll
+  for (int j = 0; j < kMaxPix; ++j) {
+    const int p = j * kThreads + threadIdx.x;
+    const bool in = p < npx;
+    const int so = in ? A.s_o[base + p] : -1;
+    const int st = in ? A.s_t[base + p] : -1;
+    const float dop = in ? A.d_o[base + p] : 1.0f;
+    const float dtp = in ? A.d_t[base + p] : 1.0f;
+    const bool cov_o = so >= 0, cov_t = st >= 0;
+    if (in) {
+      const bool t_front = cov_t && (dtp <= dop);
+      float* out = A.out + base + p;
+      out[7 * plane] = (cov_o ? 1.0f : 0.0f) + 2.0f * (t_front ? 1.0f : 0.0f);
+      if (!cov_o) {
+        out[0 * plane] = 0.0f;
+        out[1 * plane] = 0.0f;
+        out[2 * plane] = 0.0f;
+      }
+      if (!cov_t) {
+        out[3 * plane] = 0.0f;
+        out[4 * plane] = 0.0f;
+        out[5 * plane] = 0.0f;
+        out[6 * plane] = 1.0f;
+      }
+    }
+    bal[j][0] = __ballot_sync(0xffffffffu, cov_o);
+    bal[j][1] = __ballot_sync(0xffffffffu, cov_t);
+    if (lane == 0) {
+      wcount[j][0][warp] = __popc(bal[j][0]);
+      wcount[j][1][warp] = __popc(bal[j][1]);
+    }
+  }
   for (int i = threadIdx.x; i < A.nl * kLCol; i += blockDim.x) {
     sl[i] = A.ltab[i];
   }
+  if (threadIdx.x < 16) {
+    sc[threadIdx.x] = A.ipv[threadIdx.x];
+  } else if (threadIdx.x < 19) {
+    sc[threadIdx.x] = A.cam[threadIdx.x - 16];
+  } else if (threadIdx.x < kScene) {
+    sc[threadIdx.x] = A.org[threadIdx.x - 19];
+  }
   __syncthreads();
 
-  float ipv[16];
+  // --- the work list: item p (opaque) or npx + p (transparent), opaque
+  // items first, each layer in pixel order, i.e. in (j, warp, lane) order
+  int before[kMaxPix][2];
+  int total[2] = {0, 0};
 #pragma unroll
-  for (int i = 0; i < 16; ++i) ipv[i] = A.ipv[i];
-  const float cx = A.cam[0], cy = A.cam[1], cz = A.cam[2];
-  const float ox = A.org[0], oy = A.org[1];
+  for (int j = 0; j < kMaxPix; ++j) {
+#pragma unroll
+    for (int l = 0; l < 2; ++l) before[j][l] = total[l];
+    for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+      for (int l = 0; l < 2; ++l) {
+        if (w == warp) before[j][l] = total[l];
+        total[l] += wcount[j][l][w];
+      }
+    }
+  }
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < kMaxPix; ++j) {
+    const int p = j * kThreads + threadIdx.x;
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      if ((bal[j][l] >> lane) & 1u) {
+        items[l * total[0] + before[j][l] + __popc(bal[j][l] & below)] =
+            static_cast<short>(l * npx + p);
+      }
+    }
+  }
+  const int n_items = total[0] + total[1];
+  if (n_items == 0) return;  // uniform: nothing covered in the tile
+  __syncthreads();
+
+  // --- pass B: one item a thread ---
   int n_iter = A.tlist != nullptr ? A.tcount[t] : A.lcount[0];
   n_iter = min(max(n_iter, 0), A.tlist != nullptr ? A.lb : A.nl);
-
-  const int npx = A.th * A.tw;
-  const int ty0 = (t / A.tiles_x) * A.th;
-  const int tx0 = (t % A.tiles_x) * A.tw;
-  const size_t base = static_cast<size_t>(t) * npx;
-  const size_t plane = static_cast<size_t>(A.nt) * npx;
-#pragma unroll 1
-  for (int j = 0; j < kMaxPix; ++j) {
-    const int p = threadIdx.x + j * kThreads;
-    if (p >= npx) break;
-    const float py = (static_cast<float>(p / A.tw) + static_cast<float>(ty0)) + 0.5f;
-    const float px = (static_cast<float>(p % A.tw) + static_cast<float>(tx0)) + 0.5f;
-    const int so = A.s_o[base + p], st = A.s_t[base + p];
-    const float dop = A.d_o[base + p], dtp = A.d_t[base + p];
-    const bool cov_o = so >= 0, cov_t = st >= 0;
-    Lit o{0.0f, 0.0f, 0.0f, 0.0f}, tr{0.0f, 0.0f, 0.0f, 1.0f};
-    if (cov_o) {
-      o = shade_pixel(A, sl, t, p, so, dop, px, py, A.n_slots > 0, 0, n_iter,
-                      ipv, cx, cy, cz, ox, oy);
-    }
-    if (cov_t) {
-      tr = shade_pixel(A, sl, t, p, st, dtp, px, py, false, A.ovr_chans,
-                       n_iter, ipv, cx, cy, cz, ox, oy);
-    }
-    const bool t_front = cov_t && (dtp <= dop);
-    float* out = A.out + base + p;
-    out[0 * plane] = o.r;
-    out[1 * plane] = o.g;
-    out[2 * plane] = o.b;
-    out[3 * plane] = tr.r;
-    out[4 * plane] = tr.g;
-    out[5 * plane] = tr.b;
-    out[6 * plane] = tr.alpha;
-    out[7 * plane] = (cov_o ? 1.0f : 0.0f) + 2.0f * (t_front ? 1.0f : 0.0f);
+  for (int i = threadIdx.x; i < n_items; i += blockDim.x) {
+    const int it = items[i];
+    const int layer = it >= npx ? 1 : 0;
+    shade_item(A, sl, sc, t, it - layer * npx, layer, n_iter);
   }
 }
 

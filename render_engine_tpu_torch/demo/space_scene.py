@@ -317,17 +317,20 @@ def space_config(*, capacity: int = 256, num_asteroids: int = 40,
         shadow_lov_bias=2 if shadow_lov_bias is None else shadow_lov_bias)
 
 
-def space_camera(width: int, height: int, device="cpu"):
+def space_camera(width: int, height: int):
     """The demo camera: at the ship, looking down -Z, far plane at the
-    1500-unit draw distance."""
+    1500-unit draw distance. Built on the host; the Engine moves it to its
+    own device."""
     return (CameraBuilder().with_position(1000.0, 1000.0, 1150.0)
             .with_yaw_pitch_degrees(-90.0, 0.0).with_fov_degrees(60.0)
             .with_aspect(width / height).with_near_far(0.5, 1500.0)
-            .with_draw_distance(1500.0).build(device))
+            .with_draw_distance(1500.0).build())
 
 
-def build_space_engine(*, device="cpu", **kw) -> Engine:
+def build_space_engine(*, device="cuda", **kw) -> Engine:
+    """The demo engine on ``device`` (the card unless the caller asks for
+    the CPU)."""
     cfg = space_config(**kw)
     return Engine(cfg, camera=space_camera(cfg.render.width,
-                                           cfg.render.height, device),
+                                           cfg.render.height),
                   device=device)

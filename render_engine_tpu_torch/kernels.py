@@ -66,19 +66,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile every ``csrc/*.cu`` (one ``nvcc -c`` each, in parallel) and
-    link them into one shared library; returns its path. ``verbose`` adds
-    ``-Xptxas -v`` (registers, spills) and prints the compiler's output."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def build(verbose: bool = False, csrc: str = CSRC,
+          lib_path: str = LIB_PATH) -> str:
+    """Compile every ``*.cu`` of ``csrc`` (one ``nvcc -c`` each, in
+    parallel) and link them into the shared library ``lib_path``; returns
+    its path. ``verbose`` adds ``-Xptxas -v`` (registers, spills) and
+    prints the compiler's output."""
+    build_dir = os.path.dirname(lib_path)
+    os.makedirs(build_dir, exist_ok=True)
     nvcc = _nvcc()
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    sources = sorted(glob.glob(os.path.join(csrc, "*.cu")))
     tag = f".{os.getpid()}"
-    objs = [os.path.join(BUILD_DIR, os.path.basename(src)[:-3] + tag + ".o")
+    objs = [os.path.join(build_dir, os.path.basename(src)[:-3] + tag + ".o")
             for src in sources]
     procs = [subprocess.Popen(
         [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-I",
-         CSRC, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+         csrc, "-c", "-o", obj, src], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
         for src, obj in zip(sources, objs)]
     logs = [p.communicate()[0] for p in procs]
@@ -86,7 +89,7 @@ def build(verbose: bool = False) -> str:
         failed = [log for p, log in zip(procs, logs) if p.returncode != 0]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        tmp = LIB_PATH + tag + ".tmp"
+        tmp = lib_path + tag + ".tmp"
         link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
                                *objs], capture_output=True, text=True,
                               check=False)
@@ -99,8 +102,8 @@ def build(verbose: bool = False) -> str:
                 os.remove(obj)
     if verbose:
         print("".join(logs))
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+    os.replace(tmp, lib_path)
+    return lib_path
 
 
 def _stale() -> bool:
@@ -111,6 +114,16 @@ def _stale() -> bool:
                for f in glob.glob(os.path.join(CSRC, "*.cu*")))
 
 
+def load(lib_path: str = LIB_PATH) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C signatures."""
+    lib = ctypes.CDLL(lib_path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library():
     """The loaded kernel library, built on first use (and rebuilt when a
     source is newer than the library)."""
@@ -119,12 +132,7 @@ def library():
         if _lib is None:
             if _stale():
                 build()
-            lib = ctypes.CDLL(LIB_PATH)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load()
     return _lib
 
 

@@ -43,7 +43,7 @@ N_ATTR_BASE = 48
 N_ATTR = 56
 N_ATTR_NORM = 64
 
-MAX_TILE_PIXELS = 1024  # K1/K3 blocks hold one tile at <= 4 px a thread
+K1_THREADS = 256
 
 
 def _candidate_table(batch, cfg, tiles_x, tiles_y, tri_class=None,
@@ -200,6 +200,84 @@ def _edge_fma(ax, ay, bx, by, px, py):
     return _fma(bx - ax, py - ay, -((by - ay) * (px - ax)))
 
 
+def _edge_test(x0, y0, x1, y1, x2, y2, px, py):
+    """K1's fused edge functions at (px, py), their sum, and the edge test:
+    all three >= 0 or all <= 0, and |area| > 1e-9."""
+    l0 = _edge_fma(x1, y1, x2, y2, px, py)
+    l1 = _edge_fma(x2, y2, x0, y0, px, py)
+    l2 = _edge_fma(x0, y0, x1, y1, px, py)
+    area = (l0 + l1) + l2
+    inside = (((l0 >= 0.0) & (l1 >= 0.0) & (l2 >= 0.0))
+              | ((l0 <= 0.0) & (l1 <= 0.0) & (l2 <= 0.0)))
+    return l0, l1, l2, area, inside & (area.abs() > 1e-9)
+
+
+# K1 skips, per warp, a candidate whose conservative screen box misses the
+# warp's pixel centres (csrc/tile_raster.cu, skip_box). k1_skip_boxes
+# computes the same boxes for the CPU tests; the plain version above does
+# not cull. A box is the vertex box grown by (width, height) * 2E/|A|,
+# where A is the triangle's doubled area and E bounds the rounding errors of
+# the three fused edge functions over the tile: an accepted centre has
+# barycentrics >= -E/|A|. Slivers (|A| <= 2E), coordinates beyond 2^24 and
+# NaN get an unbounded box.
+_K1_MAX_COORD = 2.0 ** 24
+
+
+def _f32_outward(x, up):
+    """float64 -> float32, rounded toward +inf (``up``) or -inf."""
+    r = x.float()
+    step = (r.double() < x) if up else (r.double() > x)
+    toward = torch.full_like(r, float("inf") if up else float("-inf"))
+    return torch.where(step, torch.nextafter(r, toward), r)
+
+
+def k1_skip_boxes(data, *, tiles_x, tile_h, tile_w):
+    """(NT, 4, K) f32 boxes [xlo, xhi, ylo, yhi]: no pixel centre of tile t
+    outside box (t, :, k) passes candidate k's rounded edge test."""
+    nt = data.shape[0]
+    v = data[:, :6].double()
+    x, y = v[:, 0::2], v[:, 1::2]  # (NT, 3, K)
+    tids = torch.arange(nt, device=data.device)
+    ox = ((tids % tiles_x) * tile_w).double()[:, None]
+    oy = (torch.div(tids, tiles_x, rounding_mode="floor")
+          * tile_h).double()[:, None]
+    pxlo, pxhi = ox + 0.5, ox + (tile_w - 0.5)
+    pylo, pyhi = oy + 0.5, oy + (tile_h - 0.5)
+    ok = ((x.abs() <= _K1_MAX_COORD) & (y.abs() <= _K1_MAX_COORD)).all(1)
+    eb = torch.zeros_like(x[:, 0])
+    for a, b in ((1, 2), (2, 0), (0, 1)):
+        eb = eb + ((x[:, b] - x[:, a]).abs()
+                   * torch.maximum((pylo - y[:, a]).abs(),
+                                   (pyhi - y[:, a]).abs())
+                   + (y[:, b] - y[:, a]).abs()
+                   * torch.maximum((pxlo - x[:, a]).abs(),
+                                   (pxhi - x[:, a]).abs()))
+    eb = eb * (4.0 * 2.0 ** -24) + 2.0 ** -100
+    p1 = (x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0])
+    p2 = (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0])
+    area = (p1 - p2).abs() - 2.0 ** -48 * (p1.abs() + p2.abs())
+    ok = ok & (area > 2.0 * eb)
+    s = (2.0 * eb) / area
+    xmin, xmax = x.amin(1), x.amax(1)
+    ymin, ymax = y.amin(1), y.amax(1)
+    mx = (xmax - xmin) * s + 2.0 ** -20
+    my = (ymax - ymin) * s + 2.0 ** -20
+    box = torch.stack([_f32_outward(xmin - mx, False),
+                       _f32_outward(xmax + mx, True),
+                       _f32_outward(ymin - my, False),
+                       _f32_outward(ymax + my, True)], dim=1)
+    inf = float("inf")
+    unbounded = torch.tensor([-inf, inf, -inf, inf],
+                             device=data.device)[None, :, None]
+    return torch.where(ok[:, None], box, unbounded)
+
+
+def k1_outside(box, px, py):
+    """Pixel centres (px, py) that K1 skips for a box [xlo, xhi, ylo,
+    yhi] (broadcasting; a NaN centre is never skipped)."""
+    return (px < box[0]) | (px > box[1]) | (py < box[2]) | (py > box[3])
+
+
 def tile_raster_reference(data, ids, counts, *, tiles_x, tile_h, tile_w,
                           tile_budget, trans_budget, two_pass):
     """Plain PyTorch K1: the kernel's candidate loop over (NT, th, tw)."""
@@ -227,14 +305,10 @@ def tile_raster_reference(data, ids, counts, *, tiles_x, tile_h, tile_w,
             c = [data[:, i, kk][:, None, None] for i in range(10)]
             x0, y0, x1, y1, x2, y2, z0, z1, z2, cls = c
             tid = ids[:, 0, kk][:, None, None]
-            l0 = _edge_fma(x1, y1, x2, y2, px, py)
-            l1 = _edge_fma(x2, y2, x0, y0, px, py)
-            l2 = _edge_fma(x0, y0, x1, y1, px, py)
-            area = (l0 + l1) + l2
-            inside = (((l0 >= 0.0) & (l1 >= 0.0) & (l2 >= 0.0))
-                      | ((l0 <= 0.0) & (l1 <= 0.0) & (l2 <= 0.0)))
+            l0, l1, l2, area, inside = _edge_test(x0, y0, x1, y1, x2, y2,
+                                                  px, py)
+            inside = inside & (cls > 0.0) & run
             nz = area.abs() > 1e-9
-            inside = inside & nz & (cls > 0.0) & run
             inv_area = 1.0 / torch.where(nz, area, torch.ones_like(area))
             d = _fma(l2, z2, _fma(l0, z0, l1 * z1)) * inv_area
             inside = inside & (d >= -1.0) & (d <= 1.0)
@@ -266,9 +340,10 @@ def tile_raster(data, ids, counts, *, tiles_x, tile_h, tile_w, tile_budget,
         return tile_raster_reference(data, ids, counts, **kw)
     nt, _, k = data.shape
     dev = data.device
-    if tile_h * tile_w > MAX_TILE_PIXELS:
-        raise ValueError(f"tile of {tile_h}x{tile_w} exceeds "
-                         f"{MAX_TILE_PIXELS} pixels")
+    # a thread owns one column and up to 4 rows of the tile
+    if tile_w > K1_THREADS or -(-tile_h // (K1_THREADS // tile_w)) > 4:
+        raise ValueError(f"K1 takes no {tile_h}x{tile_w} tile: at most "
+                         f"{K1_THREADS} columns and 4 rows a thread")
     kernels.check(data, "data", torch.float32, (nt, 10, k), dev)
     kernels.check(ids, "ids", torch.int32, (nt, 1, k), dev)
     kernels.check(counts, "counts", torch.int32, (nt, 1, 3), dev)

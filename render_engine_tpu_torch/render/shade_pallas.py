@@ -30,9 +30,9 @@ import torch
 from render_engine_tpu_torch import kernels
 from render_engine_tpu_torch.render.lighting import (DIFFUSE_FLOOR,
                                                      SHININESS, LightArrays)
-from render_engine_tpu_torch.render.raster_pallas import MAX_TILE_PIXELS
 
 N_LCOL = 28
+MAX_TILE_PIXELS = 1024  # K3 blocks hold one tile at <= 4 px a thread
 MAX_LTAB_BYTES = 48 * 1024  # K3 stages the light table in shared memory
 
 
@@ -260,6 +260,26 @@ def fused_shade_reference(rows, s_o, s_t, d_o, d_t, ltab, lcount, cam, ipv,
     return torch.stack([r_o, g_o, b_o, r_t, g_t, b_t,
                         torch.where(cov_t, alpha, torch.ones_like(alpha)),
                         flags])
+
+
+def shade_work_list(s_o, s_t, d_o, d_t):
+    """K3's pass A, plainly (csrc/fused_shade.cu): the flags plane
+    (NT, th, tw), bit0 opaque covered and bit1 transparent in front, and
+    each tile's work list, (NT, 2 * npx) int32 items, ``p`` for pixel p on
+    the opaque layer and ``npx + p`` on the transparent one, opaque items
+    first and each layer in pixel order, padded with -1; with the (NT,)
+    item counts."""
+    nt, th, tw = s_o.shape
+    npx = th * tw
+    cov = torch.cat([s_o.reshape(nt, npx) >= 0, s_t.reshape(nt, npx) >= 0],
+                    dim=1)
+    t_front = (s_t >= 0) & (d_t <= d_o)
+    flags = (s_o >= 0).to(torch.float32) + 2.0 * t_front.to(torch.float32)
+    order = torch.argsort((~cov).to(torch.int8), dim=1, stable=True)
+    n = cov.sum(dim=1, dtype=torch.int32)
+    slot = torch.arange(2 * npx, device=s_o.device)[None]
+    items = torch.where(slot < n[:, None], order, -1).to(torch.int32)
+    return flags, items, n
 
 
 def fused_shade(rows, s_o, s_t, d_o, d_t, lights: LightArrays,

@@ -40,9 +40,12 @@ from render_engine_tpu_torch.runtime.config import EngineConfig
 
 class Engine:
     def __init__(self, config: EngineConfig, camera: Camera | None = None,
-                 device="cpu"):
+                 device="cuda"):
         self.config = config
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Engine: no CUDA device; pass device='cpu' "
+                               "to run on the CPU")
         self.world_config = W.WorldConfig(
             capacity=config.capacity, world_min=config.world_min,
             world_length=config.world_length,

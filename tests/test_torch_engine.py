@@ -57,7 +57,7 @@ def engines():
            .with_aspect(KW["width"] / KW["height"])
            .with_near_far(0.5, 1500.0).with_draw_distance(1500.0).build())
     return JEngine(cfg, camera=cam), TS.build_space_engine(
-        enable_shadows=False, **KW)
+        device="cpu", enable_shadows=False, **KW)
 
 
 @pytest.fixture(scope="module")
@@ -157,3 +157,11 @@ def test_converted_jax_state_renders_like_the_port(engines, runs):
     a = to_srgb_u8(torch.as_tensor(img)).numpy()
     b = to_srgb_u8(torch.as_tensor(runs[-1]["timg"])).numpy()
     assert (a != b).mean() <= 1e-3, (a != b).sum()
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """The entry points default to the card: with no card, a build that
+    names no device raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.build_space_engine(enable_shadows=False, **KW)

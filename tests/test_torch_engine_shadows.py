@@ -80,7 +80,8 @@ def runs():
                .with_aspect(KW["width"] / KW["height"])
                .with_near_far(0.5, 1500.0).with_draw_distance(1500.0)
                .build())
-        jeng, teng = JEngine(cfg, camera=cam), TS.build_space_engine(**KW)
+        jeng, teng = JEngine(cfg, camera=cam), TS.build_space_engine(
+            device="cpu", **KW)
         assert teng.config.enable_shadows and teng.shadow_state is not None
         out = []
         for i in range(4):

@@ -114,7 +114,7 @@ def stepped():
            .with_aspect(KW["width"] / KW["height"])
            .with_near_far(0.5, 1500.0).with_draw_distance(1500.0).build())
     jeng = JEngine(cfg, camera=cam)
-    teng = TS.build_space_engine(**KW)
+    teng = TS.build_space_engine(device="cpu", **KW)
     alive0 = int(np.asarray(jeng.world.alive).sum())
     spawned_at = None
     for i in range(FRAMES):
