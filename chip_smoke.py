@@ -29,7 +29,20 @@ Phases (any failure exits non-zero; no phase catches its own):
              each frame must launch K1 twice when its update renders a map
              (host tick % 3 == 0) and once otherwise, K2 and K3 once, and
              give a finite (1080,1920,3) image; then all 13 drop counters
-             (6 step, 7 render) must be 0.
+             (6 step, 7 render) must be 0. Frames are not recorded here.
+  6. replay  frames timed with recording off and on in turns (off, on,
+             on, off); then, under torch.use_deterministic_algorithms(True),
+             the same engine records 12 frames (rendered, step-only and
+             one fused frame without an image, a draw-distance change
+             before frame 6, a 2^32-1 seed), flushes the log (timed) and
+             loads it; a second full-size engine replays it with each
+             frame's live render flag: world hashes, launches per frame and
+             the images of the rendered frames must equal the live run's,
+             and the shadow state and draw distance at the end too. Then a
+             replay with the detached camera (Esc, then W and a mouse
+             turn): the same hashes, finite images unlike the live ones;
+             then past the end, Up (one live frame, paused) and Right
+             (RUN).
 The last three lines are the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 
@@ -67,6 +80,14 @@ SMALL = dict(width=128, height=32, capacity=128, num_asteroids=10,
              max_tris=2048)
 WARMUP, TIMED = 3, 30
 DT = 1.0 / 60.0
+# phase 6: each recorded frame's render flag; frame REPLAY_FUSED_AT
+# advances as a fused frame without an image
+REPLAY_RENDER = (True, True, False, True, False, True, True, False, True,
+                 True, True, True)
+REPLAY_FUSED_AT = 4
+REPLAY_DRAW_AT, REPLAY_DRAW_DISTANCE = 6, 1200.0
+REPLAY_BIG_SEED_AT = 2
+RECORD_TURNS, TURN_FRAMES = ("off", "on", "on", "off") * 5, 10
 CAPTURE_FRAME = 3  # frames 0 and 3 render maps at interval 3: both slots
 
 KERNELS = {  # record name -> (launch-count key, source, TPU kernel)
@@ -579,14 +600,28 @@ def _same_shadow_state(i, sc, sg):
         raise RuntimeError(f"small frame {i}: shadow maps differ")
 
 
+def frame_inputs(i):
+    """Frame i's inputs: idle, then W, then W with a mouse turn."""
+    import numpy as np
+
+    from render_engine_tpu_torch.logic.types import KEY_W, InputState
+
+    inp = InputState.idle(i)
+    if i == 1:
+        return inp.with_keys(KEY_W)
+    if i >= 2:
+        return dataclasses.replace(
+            inp.with_keys(KEY_W),
+            mouse_delta=np.array([0.02, -0.01], np.float32))
+    return inp
+
+
 def phase_small():
     """4 frames of the small engine on the card against the CPU, without
     and with shadows."""
-    import numpy as np
     import torch
 
     from render_engine_tpu_torch.demo.space_scene import build_space_engine
-    from render_engine_tpu_torch.logic.types import KEY_W, InputState
     from render_engine_tpu_torch.render.frame import to_srgb_u8
 
     for shadows in (False, True):
@@ -595,13 +630,7 @@ def phase_small():
                                          **SMALL)
                    for d in ("cpu", "cuda")}
         for i in range(4):
-            inp = InputState.idle(i)
-            if i == 1:
-                inp = inp.with_keys(KEY_W)
-            elif i >= 2:
-                inp = dataclasses.replace(
-                    inp.with_keys(KEY_W),
-                    mouse_delta=np.array([0.02, -0.01], np.float32))
+            inp = frame_inputs(i)
             imgs = {d: e.frame(inp, DT).cpu() for d, e in engines.items()}
             wc, wg = engines["cpu"].world, engines["cuda"].world
             if not torch.equal(wc.alive, wg.alive.cpu()):
@@ -693,7 +722,221 @@ def phase_slice(eng):
     return launches
 
 
+def launch_delta(before):
+    from render_engine_tpu_torch import kernels
+
+    return {k: n - before[k] for k, n in kernels.LAUNCHES.items()}
+
+
+def timed_frame(fn):
+    """fn() and its ms, synchronized."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def record_turns(eng):
+    """Median ms/frame of TURN_FRAMES rendered frames per turn, recording
+    off and on in RECORD_TURNS order (each turn from a reset); the medians
+    of the turn medians."""
+    turns = {"off": [], "on": []}
+    for which in RECORD_TURNS:
+        eng.config.record_history = which == "on"
+        eng.reset()
+        times = [timed_frame(lambda: eng.frame(None, DT))[1]
+                 for _ in range(TURN_FRAMES)]
+        turns[which].append(statistics.median(times))
+    eng.config.record_history = False
+    for which, meds in turns.items():
+        log(f"[replay] recording {which}: {TURN_FRAMES} frames a turn, "
+            f"turn medians {', '.join(f'{m:.2f}' for m in meds)} ms; median "
+            f"{statistics.median(meds):.2f} ms/frame")
+    return {k: statistics.median(v) for k, v in turns.items()}
+
+
+def record_live(eng):
+    """Record the REPLAY_RENDER frames on ``eng`` from a reset; flush and
+    load the log. Returns the log, each frame's hash, launches and image,
+    the frames' ms, the flush ms and the npz size."""
+    import tempfile
+
+    from render_engine_tpu_torch import kernels
+    from render_engine_tpu_torch.runtime.history import HistoryLog
+    from render_engine_tpu_torch.utils.hashing import world_hash
+
+    eng.config.record_history = True
+    eng.reset()
+    live, live_ms = [], []
+    kernels.reset_launch_counts()
+    for i, render in enumerate(REPLAY_RENDER):
+        if i == REPLAY_DRAW_AT:
+            eng.set_draw_distances(draw_distance=REPLAY_DRAW_DISTANCE)
+        inp = frame_inputs(i)
+        if i == REPLAY_BIG_SEED_AT:
+            inp = dataclasses.replace(inp, rng_seed=2**32 - 1)
+        before = dict(kernels.LAUNCHES)
+        img, ms = timed_frame(lambda: eng.frame(
+            inp, DT, render=render,
+            advance="fused" if i == REPLAY_FUSED_AT else None))
+        live_ms.append(ms)
+        live.append(dict(hash=world_hash(eng.world),
+                         launches=launch_delta(before), img=img))
+    with tempfile.TemporaryDirectory() as d:
+        eng.config.history_dir = d
+        path, flush_ms = timed_frame(eng.flush_history)
+        size = os.path.getsize(path)
+        history = HistoryLog.load(d)
+    eng.config.record_history = False
+    log(f"[replay] live: {len(REPLAY_RENDER)} frames (render "
+        f"{''.join('TF'[not r] for r in REPLAY_RENDER)}, frame "
+        f"{REPLAY_FUSED_AT} fused without an image), launches "
+        f"{dict(kernels.LAUNCHES)}; flush of the {eng.config.capacity}-row "
+        f"baseline {flush_ms:.1f} ms, npz {size} bytes")
+    if history.num_frames != len(REPLAY_RENDER):
+        raise RuntimeError(f"the log holds {history.num_frames} frames")
+    return history, live, live_ms, flush_ms, size
+
+
+def replay_checked(eng, eng2, history, live):
+    """Replay ``history`` on ``eng2`` with each frame's live render flag;
+    hashes, launches and images must equal the live frames', and the
+    shadow state and draw distance ``eng``'s at the end. Returns the
+    launches and each frame's ms."""
+    import torch
+
+    from render_engine_tpu_torch import kernels
+    from render_engine_tpu_torch.runtime.replay import Player
+    from render_engine_tpu_torch.utils.hashing import world_hash
+
+    kernels.reset_launch_counts()
+    player = Player(eng2, history)
+    replay_ms = []
+    for i, render in enumerate(REPLAY_RENDER):
+        before = dict(kernels.LAUNCHES)
+        (img, _), ms = timed_frame(lambda: player.step(render=render))
+        replay_ms.append(ms)
+        got, want = launch_delta(before), live[i]
+        if world_hash(eng2.world) != want["hash"]:
+            raise RuntimeError(f"replayed frame {i}: world hash differs")
+        if got != want["launches"]:
+            raise RuntimeError(f"replayed frame {i} launched {got}, live "
+                               f"{want['launches']}")
+        if (img is None) != (want["img"] is None) or (
+                img is not None and not torch.equal(img, want["img"])):
+            raise RuntimeError(f"replayed frame {i}: image differs")
+    launches = dict(kernels.LAUNCHES)
+    a, b = eng.shadow_state, eng2.shadow_state
+    if not (all(torch.equal(getattr(a, n), getattr(b, n)) for n in
+                ("maps", "light_mats", "slot_entity", "slot_face"))
+            and (a.cursor, a.tick) == (b.cursor, b.tick)):
+        raise RuntimeError("replay: shadow state differs at the end")
+    if eng2.camera.draw_distance != REPLAY_DRAW_DISTANCE:
+        raise RuntimeError("replay: the draw-distance change was lost")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"replay launched no {missing}")
+    log(f"[replay] {len(REPLAY_RENDER)} replayed frames: world hashes, "
+        "launches per frame and the rendered images equal the live run's "
+        "(torch.equal), shadow state equal, draw distance "
+        f"{eng2.camera.draw_distance}; launches {launches}")
+    return launches, replay_ms
+
+
+def replay_detached(eng2, history, live):
+    """Replay again from a reset with the detached camera (Esc, then W and
+    a mouse turn), then past the end: Up, then Right."""
+    import numpy as np
+    import torch
+
+    from render_engine_tpu_torch.logic.types import (KEY_ESC, KEY_RIGHT,
+                                                     KEY_UP, KEY_W,
+                                                     InputState)
+    from render_engine_tpu_torch.runtime.replay import PlaybackMode, Player
+    from render_engine_tpu_torch.utils.hashing import world_hash
+
+    eng2.reset()
+    player = Player(eng2, history)
+    for i in range(len(REPLAY_RENDER)):
+        controls = InputState.idle(i).with_keys(KEY_ESC)
+        if i:
+            controls = dataclasses.replace(
+                InputState.idle(i).with_keys(KEY_W),
+                mouse_delta=np.array([0.03, 0.0], np.float32))
+        img, _ = player.step(controls, render=True)
+        if world_hash(eng2.world) != live[i]["hash"]:
+            raise RuntimeError(f"detached replay frame {i}: world hash "
+                               "differs")
+        if tuple(img.shape) != (SLICE["height"], SLICE["width"], 3) or \
+                not bool(torch.isfinite(img).all()):
+            raise RuntimeError(f"detached replay frame {i}: image")
+        if i >= 1 and live[i]["img"] is not None and torch.equal(
+                img, live[i]["img"]):
+            raise RuntimeError(f"detached replay frame {i}: the image is "
+                               "the recorded camera's")
+    if player.mode != PlaybackMode.DEBUG_CUSTOM_MOVEMENT:
+        raise RuntimeError(f"detached replay ended in {player.mode}")
+    moved = float((player.detached_camera.position
+                   - eng2.camera.position).norm())
+    log("[replay] detached camera: world hashes equal the live run's, "
+        f"finite images unlike the live ones; camera {moved:.3f} units from "
+        "the recorded one")
+
+    player.step(render=False)
+    if player.mode != PlaybackMode.ONE_PAST_LAST_FRAME:
+        raise RuntimeError(f"past the end: {player.mode}")
+    h0 = world_hash(eng2.world)
+    player.step(InputState.idle(100).with_keys(KEY_UP), render=True)
+    if player.mode != PlaybackMode.ONE_PAST_LAST_PAUSE or \
+            world_hash(eng2.world) == h0:
+        raise RuntimeError("Up past the end did not step one frame")
+    player.step(InputState.idle(101).with_keys(KEY_RIGHT), render=True)
+    if player.mode != PlaybackMode.RUN:
+        raise RuntimeError(f"Right did not resume: {player.mode}")
+    log("[replay] past the end: ONE_PAST_LAST_FRAME, Up stepped one live "
+        "frame (ONE_PAST_LAST_PAUSE), Right resumed RUN")
+
+
+def phase_replay(eng):
+    """Recording off and on in turns; then, under deterministic
+    algorithms, record on ``eng``, replay on a second engine, replay with
+    the detached camera and step past the end. Returns the launches of the
+    checked replay."""
+    import torch
+
+    from render_engine_tpu_torch.demo.space_scene import build_space_engine
+
+    turns = record_turns(eng)
+    torch.use_deterministic_algorithms(True)
+    try:
+        history, live, live_ms, flush_ms, size = record_live(eng)
+        eng2 = build_space_engine(device="cuda", **SLICE)
+        eng2.config.record_history = False
+        launches, replay_ms = replay_checked(eng, eng2, history, live)
+        replay_detached(eng2, history, live)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[replay] deterministic algorithms on: live median "
+        f"{statistics.median(live_ms):.2f} ms/frame, replay median "
+        f"{statistics.median(replay_ms):.2f} ms/frame (per frame: live "
+        f"{', '.join(f'{t:.1f}' for t in live_ms)}; replay "
+        f"{', '.join(f'{t:.1f}' for t in replay_ms)})")
+    log(json.dumps({"replay": {
+        "ms_per_frame_record_off": turns["off"],
+        "ms_per_frame_record_on": turns["on"],
+        "flush_ms": flush_ms, "npz_bytes": size,
+        "live_ms_per_frame_deterministic": statistics.median(live_ms),
+        "replay_ms_per_frame_deterministic": statistics.median(replay_ms),
+        "frames": len(REPLAY_RENDER)}}))
+    return launches
+
+
 def main() -> int:
+    # cuBLAS is deterministic only with a fixed workspace, set before CUDA
+    # starts (phase 6 runs with deterministic algorithms)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -728,12 +971,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     eng = build_space_engine(device="cuda", **SLICE)
+    eng.config.record_history = False
     log(f"[slice] engine built in {time.perf_counter() - t0:.1f} s: "
         f"{SLICE}")
     rec = phase_kernels(eng, earlier)
     phase_frame(eng)
     phase_small()
     launches = phase_slice(eng)
+    replay_launches = phase_replay(eng)
     frames = WARMUP + TIMED
     # per frame: the two-pass main raster once, the one-pass shadow raster
     # on map frames (tile_raster counts both modes)
@@ -745,7 +990,7 @@ def main() -> int:
 
     kern = [dict(name=n, route="cuda", source=src, replaces=rep,
                  launches=launches[key], launches_per_frame=per_frame[n],
-                 **rec[n])
+                 replay_launches=replay_launches[key], **rec[n])
             for n, (key, src, rep) in KERNELS.items()]
     log(json.dumps({"kernels": kern}))
     log(smi)

@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from render_engine_tpu_torch.ecs import world as W
 from render_engine_tpu_torch.ecs.world import World, WorldConfig
 from render_engine_tpu_torch.math.camera import Camera
 from render_engine_tpu_torch.models.bank import ModelBank
@@ -39,10 +40,8 @@ def _t(a, device):
 def world_from_numpy(config: WorldConfig, alive, comp_mask, comps: dict,
                      device="cpu") -> World:
     """World columns (name -> array) and ``alive`` -> a port World."""
-    return World(alive=_t(alive, device).to(torch.bool),
-                 comp_mask=_t(comp_mask, device),
-                 comps={k: _t(v, device) for k, v in comps.items()},
-                 config=config)
+    return W.restore(config, {"alive": alive, "comp_mask": comp_mask,
+                              "comps": comps}, device)
 
 
 def bank_from_numpy(arrays: dict, names, device="cpu") -> ModelBank:

@@ -131,3 +131,57 @@ def spawn_host(world: World, count: int, **values) -> tuple[World, np.ndarray]:
     new_mask[idx_t] = R.as_bits(mask_bits)
     return dataclasses.replace(world, alive=new_alive, comp_mask=new_mask,
                                comps=comps), idx
+
+
+def despawn(world: World, kill_mask: torch.Tensor) -> World:
+    """Kill the entities where ``kill_mask`` is True; killing a dead slot
+    is a no-op."""
+    return dataclasses.replace(
+        world, alive=world.alive & ~kill_mask,
+        comp_mask=torch.where(kill_mask, torch.zeros_like(world.comp_mask),
+                              world.comp_mask))
+
+
+def _jax_dtype(reg: R.ComponentRegistry, name: str) -> np.dtype:
+    """The JAX package's dtype of a column: the registry's, so the
+    ``uint32`` bit sets stored here as int32 come back as uint32."""
+    return np.dtype(reg.specs[reg.slot(name)].dtype)
+
+
+def snapshot(world: World) -> dict:
+    """Host copies of every column in the JAX package's dtypes (``alive``
+    bool, ``comp_mask`` and the registry's ``uint32`` columns uint32), so a
+    snapshot written here restores in the JAX package with the same hash.
+    The columns cross to the host as one byte buffer: one read-back."""
+    reg = world.config.registry
+    names = sorted(world.comps)
+    cols = [world.alive, world.comp_mask] + [world.comps[n] for n in names]
+    dtypes = [np.dtype(bool), np.dtype(np.uint32)] + [
+        _jax_dtype(reg, n) for n in names]
+    raw = torch.cat([c.contiguous().reshape(-1).view(torch.uint8)
+                     for c in cols]).cpu().numpy()
+    out, at = [], 0
+    for c, dt in zip(cols, dtypes):
+        n = c.numel() * c.element_size()
+        out.append(raw[at:at + n].copy().view(dt).reshape(tuple(c.shape)))
+        at += n
+    return {"alive": out[0], "comp_mask": out[1],
+            "comps": dict(zip(names, out[2:]))}
+
+
+def _to_port(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.tensor(a, device=device)
+
+
+def restore(config: WorldConfig, snap: dict, device="cpu") -> World:
+    """A World on ``device`` from a snapshot in the JAX package's dtypes
+    (``snapshot``'s, or a JAX-written history log's): uint32 columns
+    become the port's int32 bit patterns."""
+    return World(alive=_to_port(snap["alive"], device).to(torch.bool),
+                 comp_mask=_to_port(snap["comp_mask"], device),
+                 comps={k: _to_port(v, device)
+                        for k, v in snap["comps"].items()},
+                 config=config)

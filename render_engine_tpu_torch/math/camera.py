@@ -2,9 +2,10 @@
 
 Port of ``render_engine_tpu/math/camera.py``. ``position``, ``yaw``,
 ``pitch`` and ``velocity`` are float32 tensors on the engine's device (the
-per-frame state); the projection parameters are plain floats. The exact
-8-float ``serialize`` / ``apply_serialized`` codec is kept: it is the
-camera's whole dynamic state, bit for bit.
+per-frame state); the projection parameters and the inertial
+``movement_factor`` are plain floats. The exact 8-float ``serialize`` /
+``apply_serialized`` codec is kept: it is the camera's whole dynamic state,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from render_engine_tpu_torch.math import transforms as T
@@ -28,6 +30,7 @@ class Camera:
     near: float = 0.1
     far: float = 1000.0
     draw_distance: float = 1000.0
+    movement_factor: float = 0.9  # inertial decay per step
 
     @property
     def device(self) -> torch.device:
@@ -58,6 +61,23 @@ class Camera:
         return dataclasses.replace(
             self, yaw=self.yaw + d_yaw,
             pitch=torch.clamp(self.pitch + d_pitch, -limit, limit))
+
+    def float_position(self, accel, dt) -> "Camera":
+        """Inertial movement: the velocity integrates ``accel`` and decays
+        by ``movement_factor``, then moves the position, in float32 in the
+        JAX package's order."""
+        dt = float(np.float32(dt))
+        vel = (self.velocity + accel * dt) * float(
+            np.float32(self.movement_factor))
+        return dataclasses.replace(self, velocity=vel,
+                                   position=self.position + vel * dt)
+
+    def force_hard_position(self, position) -> "Camera":
+        """Snap to ``position`` and zero the inertia."""
+        return dataclasses.replace(
+            self, position=torch.as_tensor(position, dtype=torch.float32,
+                                           device=self.device).clone(),
+            velocity=torch.zeros_like(self.velocity))
 
     def serialize(self) -> torch.Tensor:
         """Dynamic state as one (8,) float32 vector."""
@@ -105,6 +125,10 @@ class CameraBuilder:
 
     def with_draw_distance(self, d):
         self._kw["draw_distance"] = float(d)
+        return self
+
+    def with_movement_factor(self, f):
+        self._kw["movement_factor"] = float(f)
         return self
 
     def build(self, device="cpu") -> Camera:

@@ -1,7 +1,4 @@
-"""Engine configuration (port of ``render_engine_tpu/runtime/config.py``).
-
-History recording and the replay player are not ported yet.
-"""
+"""Engine configuration (port of ``render_engine_tpu/runtime/config.py``)."""
 
 from __future__ import annotations
 
@@ -34,6 +31,10 @@ class EngineConfig:
     collision_large_budget: int = 32
     build_scene: Optional[Callable] = None  # build_scene(engine) -> None
     lov_fractions: Optional[Sequence[float]] = None
+    # history recording: every frame's inputs after a baseline snapshot,
+    # flushed to history_dir (runtime/history.py)
+    history_dir: str = "debug_logs"
+    record_history: bool = True
 
     # shadows: up to shadow_slots maps of shadow_resolution^2, at most one
     # new map per update, an update every shadow_update_interval frames

@@ -1,20 +1,23 @@
 """The Engine: owns world, camera and bank on one device; drives frames.
 
-Port of ``render_engine_tpu/runtime/engine.py`` for the headline path:
-``finalize_scene``, ``frame()`` (the step, then the shadow-map update,
-then the render of the stepped state with the updated maps, as the JAX
-package's fused frame program does), ``render``, ``reset``,
-``drop_stats`` with ``render_drop_stats``, and ``fps_stats``. PyTorch
-runs eagerly, so there is no compiled program to build: ``frame`` calls
-the step, ``render_shadow_map`` and ``render_frame`` directly.
+Port of ``render_engine_tpu/runtime/engine.py``: ``finalize_scene``,
+``frame()`` (the step, then the shadow-map update, then the render of the
+stepped state with the updated maps, as the JAX package's fused frame
+program does), ``render`` / ``render_only``, ``reset``, the burst loops
+``run_frames`` and ``run_frames_rendered``, the recorded config events
+(``set_draw_distances``, ``set_window``), history recording with
+``flush_history`` (runtime/history.py; replayed by runtime/replay.py),
+``drop_stats`` with ``render_drop_stats``, and ``fps_stats``. PyTorch runs
+eagerly, so there is no compiled program to build: ``frame`` calls the
+step, ``render_shadow_map`` and ``render_frame`` directly.
 
-Not ported yet: history recording and replay, ``run_frames`` /
-``run_frames_rendered`` (scan-batched frames), mid-run config events and
-the ``light_tile_overflow`` counter (tile light lists are not ported).
+Not ported yet: the ``light_tile_overflow`` counter (tile light lists are
+not ported).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -36,6 +39,9 @@ from render_engine_tpu_torch.render.geometry import (build_triangle_batch,
                                                      to_screen)
 from render_engine_tpu_torch.render.raster_jnp import _bin_triangles
 from render_engine_tpu_torch.runtime.config import EngineConfig
+from render_engine_tpu_torch.runtime.history import HistoryLog
+
+_CAMERA_EVENT_KEYS = ("draw_distance", "near", "far", "fov_y")
 
 
 class Engine:
@@ -60,6 +66,7 @@ class Engine:
         self.atlas = None
         self.compiled_systems = None
         self.shadow_state: SH.ShadowState | None = None
+        self.history = HistoryLog()
         self.frame_index = 0
         self._prev_keys = np.zeros(NUM_KEYS, bool)
         self._last_drops = None
@@ -83,9 +90,9 @@ class Engine:
         self.config.render_systems = systems
 
     def finalize_scene(self):
-        """Freeze the model bank, refresh every AABB, compile the render
-        systems and the step, create the shadow state, and snapshot the
-        initial state."""
+        """Freeze the model bank, refresh every AABB, take the history
+        baseline, compile the render systems and the step, create the
+        shadow state, and snapshot the initial state."""
         if self.bank is None:
             if not self.bank_builder._models:
                 from render_engine_tpu_torch.models import primitives
@@ -96,6 +103,8 @@ class Engine:
         self.world = K.refresh_transforms(self.world, self.bank.aabb_min,
                                           self.bank.aabb_max,
                                           self.world.alive)
+        # the baseline is the refreshed world: the Player uses it verbatim
+        self._start_history()
         cfg = self.config
         self._step_fn = make_step(
             tuple(cfg.entity_types), logic_radius=cfg.logic_radius,
@@ -118,18 +127,61 @@ class Engine:
                 pcf_scale=cfg.shadow_pcf_scale, device=self.device)
         self._initial_state = (
             self.world.clone(), self.camera,
-            None if self.shadow_state is None else self.shadow_state.clone())
+            None if self.shadow_state is None else self.shadow_state.clone(),
+            cfg.render)
+
+    def _start_history(self):
+        self.history = HistoryLog()
+        if self.config.record_history:
+            self.history.set_baseline(
+                self.world, self.camera,
+                meta={"engine": "render_engine_tpu_torch",
+                      "capacity": self.config.capacity})
 
     def reset(self):
-        """Back to the post-finalize state at frame zero."""
-        w0, c0, s0 = self._initial_state
+        """Back to the post-finalize state at frame zero: world, camera
+        (its draw distances too), shadow state and render settings, with a
+        fresh history baseline."""
+        w0, c0, s0, r0 = self._initial_state
         self.world = w0.clone()
         self.camera = c0
         self.shadow_state = None if s0 is None else s0.clone()
+        self.config.render = r0
+        self._start_history()
         self.frame_index = 0
         self._prev_keys = np.zeros(NUM_KEYS, bool)
         self._frame_times = []
         self._last_drops = None
+
+    # -- mid-run config changes, recorded and replayed before the frame
+    # they preceded --------------------------------------------------------
+    def apply_config_event(self, event: dict):
+        cam = {k: float(v) for k, v in event.items()
+               if k in _CAMERA_EVENT_KEYS}
+        if cam:
+            self.camera = dataclasses.replace(self.camera, **cam)
+        if "window" in event:
+            w, h = (int(v) for v in event["window"])
+            self.config.render = dataclasses.replace(self.config.render,
+                                                     width=w, height=h)
+            self.camera = dataclasses.replace(self.camera, aspect=w / h)
+
+    def _change_config(self, event: dict):
+        self.apply_config_event(event)
+        if self.config.record_history:
+            self.history.record_event(event)
+
+    def set_draw_distances(self, *, draw_distance=None, near=None, far=None,
+                           fov_y=None):
+        """Change the camera's draw distances mid-run (recorded)."""
+        self._change_config({k: float(v) for k, v in (
+            ("draw_distance", draw_distance), ("near", near), ("far", far),
+            ("fov_y", fov_y)) if v is not None})
+
+    def set_window(self, width: int, height: int):
+        """Change the render resolution and the camera's aspect mid-run
+        (recorded). The step does not read either."""
+        self._change_config({"window": [int(width), int(height)]})
 
     # -- frame loop ----------------------------------------------------------
     def step(self, inputs: InputState, dt: float):
@@ -148,36 +200,95 @@ class Engine:
             max_tris=cfg.shadow_max_tris, interval=cfg.shadow_update_interval,
             lov_bias=cfg.shadow_lov_bias, caster_mask=cfg.shadow_caster_mask)
 
-    def render(self) -> torch.Tensor:
-        """Render the current state with the current shadow maps (which
-        this does not update): (H, W, 3) float32 linear color."""
-        return render_frame(self.world, self.camera, self.bank,
-                            self.config.render, cubemap=self.cubemap,
-                            atlas=self.atlas, shadow_state=self.shadow_state,
+    def render(self, camera=None) -> torch.Tensor:
+        """Render the current state, through ``camera`` (the engine's by
+        default), with the current shadow maps, which this does not update:
+        (H, W, 3) float32 linear color."""
+        return render_frame(self.world,
+                            self.camera if camera is None else camera,
+                            self.bank, self.config.render,
+                            cubemap=self.cubemap, atlas=self.atlas,
+                            shadow_state=self.shadow_state,
                             systems=self.compiled_systems)
 
+    # the JAX package's name (detached-camera replay views)
+    render_only = render
+
     def frame(self, inputs: InputState | None = None, dt: float = 1.0 / 60.0,
-              render: bool = True):
-        """Advance one frame: the step, then (``render=True``) the
-        shadow-map update and the render of the stepped state. Returns the
-        image, or None with ``render=False``, which steps only and leaves
-        the shadow state alone. The image is not waited for; the frame time
-        recorded is the host's dispatch time unless the caller
-        synchronizes."""
+              render: bool = True, advance: str | None = None):
+        """Advance one frame: the step, then the shadow-map update if
+        ``render`` or ``advance == "fused"``, then (``render``) the render
+        of the stepped state. Returns the image or None.
+
+        ``advance`` is the JAX package's choice of compiled program:
+        ``"fused"`` (step, shadow update and render in one program) or
+        ``"step"`` (the step alone, plus an updating render if ``render``);
+        None means fused exactly when rendering. The world never depends on
+        it here (there is one eager step); it decides the shadow update,
+        and it is recorded with the frame's raw inputs so that logs replay
+        in either package with the live run's shadow maps and images.
+
+        The image is not waited for; the frame time recorded is the host's
+        dispatch time unless the caller synchronizes."""
         inputs = inputs if inputs is not None else InputState.idle(
             seed=self.frame_index)
+        if advance not in (None, "fused", "step"):
+            raise ValueError(f"advance must be None, 'fused' or 'step', "
+                             f"not {advance!r}")
+        fused = advance == "fused" or (advance is None and bool(render))
+        if self.config.record_history:
+            self.history.record_frame(inputs, dt, fused=fused)
+        # last frame's keys ride along as prev_keys: derived from the
+        # stream, so replay rebuilds them
         inputs = inputs.with_prev(self._prev_keys)
         self._prev_keys = np.asarray(inputs.keys, bool)
         t0 = time.perf_counter()
         self.step(inputs, dt)
-        img = None
-        if render:
-            if self.shadow_state is not None:
-                self.update_shadows()
-            img = self.render()
+        if self.shadow_state is not None and (render or fused):
+            self.update_shadows()
+        img = self.render() if render else None
         self.frame_index += 1
         self._frame_times.append(time.perf_counter() - t0)
         return img
+
+    def _burst(self, inputs_list, dts, renders, advance):
+        if len(inputs_list) != len(dts):
+            raise ValueError(f"{len(inputs_list)} inputs for {len(dts)} dts")
+        img, drops = None, []
+        for inputs, dt, render in zip(inputs_list, dts, renders):
+            img = self.frame(inputs, dt, render=render, advance=advance)
+            drops.append(self._last_drops)
+        if drops:
+            # the per-counter max over the burst: an overflow in the middle
+            # of it stays visible
+            self._last_drops = torch.stack(drops).amax(0)
+        return img
+
+    def run_frames(self, inputs_list, dts, render_last: bool = False):
+        """Step many frames, recorded (when recording) as step frames. With
+        ``render_last`` the last one also updates the shadow maps and
+        renders; returns its image, else None. Drop counters are the
+        per-counter max over the frames."""
+        n = len(dts)
+        return self._burst(inputs_list, dts,
+                           [render_last and i == n - 1 for i in range(n)],
+                           "step")
+
+    def run_frames_rendered(self, inputs_list, dts):
+        """Step, update the shadows and render every one of many frames;
+        returns the last image. For unrecorded runs: it refuses to run
+        while recording."""
+        if self.config.record_history:
+            raise RuntimeError("run_frames_rendered is for unrecorded runs; "
+                               "recorded frames go through frame()")
+        return self._burst(inputs_list, dts, [True] * len(dts), None)
+
+    def flush_history(self) -> str | None:
+        """Write the history log to ``config.history_dir`` when recording;
+        returns the npz path, or None."""
+        if self.config.record_history:
+            return self.history.write_to_disk(self.config.history_dir)
+        return None
 
     # -- stats ---------------------------------------------------------------
     def fps_stats(self) -> dict:

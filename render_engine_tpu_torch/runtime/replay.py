@@ -1,0 +1,155 @@
+"""Playback: deterministic replay with the five-mode state machine.
+
+Port of ``render_engine_tpu/runtime/replay.py``:
+
+  * RUN                   -- live simulation
+  * DEBUG                 -- replaying the recording frame by frame
+  * DEBUG_CUSTOM_MOVEMENT -- replay goes on with the camera detached and
+                             free to fly (Esc detaches, Insert reattaches)
+  * ONE_PAST_LAST_FRAME   -- the recording's end; Up simulates one live
+                             frame
+  * ONE_PAST_LAST_PAUSE   -- paused past the end; Right resumes RUN
+
+Replay runs the step again on the recorded inputs, from the recorded
+baseline; the detached camera renders the replayed states from elsewhere
+and never feeds the step, so the replayed world is the recorded one.
+"""
+
+from __future__ import annotations
+
+import enum
+
+import torch
+
+from render_engine_tpu_torch.logic.types import (KEY_A, KEY_D, KEY_ESC,
+                                                 KEY_INSERT, KEY_RIGHT, KEY_S,
+                                                 KEY_SHIFT, KEY_SPACE, KEY_UP,
+                                                 KEY_W, InputState)
+from render_engine_tpu_torch.math import transforms as T
+from render_engine_tpu_torch.runtime.history import HistoryLog
+from render_engine_tpu_torch.utils.hashing import world_hash
+
+FLY_ACCEL = 60.0  # detached-camera flight acceleration, units/s^2
+
+
+def _flight_accel(camera, keys) -> torch.Tensor:
+    """WASD + Space/Shift acceleration in the camera's frame, on the
+    camera's device; ``keys`` is the host-side bool vector."""
+    fwd = camera.direction()
+    world_up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
+                            device=fwd.device)
+    right = T.cross(fwd, world_up)
+    right = right / torch.linalg.vector_norm(right).clamp(min=1e-6)
+    a = torch.zeros(3, dtype=torch.float32, device=fwd.device)
+    for key, sign, axis in ((KEY_W, 1, fwd), (KEY_S, -1, fwd),
+                            (KEY_D, 1, right), (KEY_A, -1, right),
+                            (KEY_SPACE, 1, world_up),
+                            (KEY_SHIFT, -1, world_up)):
+        if bool(keys[key]):
+            a = a + axis if sign > 0 else a - axis
+    return a * FLY_ACCEL
+
+
+class PlaybackMode(enum.Enum):
+    RUN = "run"
+    DEBUG = "debug"
+    DEBUG_CUSTOM_MOVEMENT = "debug_custom_movement"
+    ONE_PAST_LAST_FRAME = "one_past_last_frame"
+    ONE_PAST_LAST_PAUSE = "one_past_last_pause"
+
+
+class Player:
+    """Drives an Engine from a HistoryLog with the five-mode state
+    machine."""
+
+    def __init__(self, engine, history: HistoryLog):
+        self.engine = engine
+        self.history = history
+        self.mode = PlaybackMode.DEBUG
+        self.cursor = 0  # next recorded frame to apply
+        self.detached_camera = None
+        # the baseline was taken after the transform refresh: used as it
+        # is, since deriving anything again could round differently
+        engine.world = history.restore_world(engine.world_config,
+                                             engine.device)
+        engine.camera = history.restore_camera(engine.camera)
+
+    # -- state machine -------------------------------------------------------
+    def handle_controls(self, controls: InputState):
+        """Mode changes from the playback keys."""
+        k = controls.keys
+        if self.mode in (PlaybackMode.DEBUG,
+                         PlaybackMode.DEBUG_CUSTOM_MOVEMENT):
+            if bool(k[KEY_ESC]):
+                self.mode = PlaybackMode.DEBUG_CUSTOM_MOVEMENT
+                if self.detached_camera is None:
+                    self.detached_camera = self.engine.camera
+            elif bool(k[KEY_INSERT]):
+                self.mode = PlaybackMode.DEBUG
+                self.detached_camera = None
+        if self.mode == PlaybackMode.ONE_PAST_LAST_PAUSE and bool(
+                k[KEY_RIGHT]):
+            self.mode = PlaybackMode.RUN
+
+    # -- stepping ------------------------------------------------------------
+    def step(self, controls: InputState | None = None, render: bool = True):
+        """Advance one playback frame. Returns (image or None, at_end)."""
+        if controls is not None:
+            self.handle_controls(controls)
+        eng = self.engine
+
+        if self.mode in (PlaybackMode.DEBUG,
+                         PlaybackMode.DEBUG_CUSTOM_MOVEMENT):
+            if self.cursor >= self.history.num_frames:
+                self.mode = PlaybackMode.ONE_PAST_LAST_FRAME
+                return None, True
+            # recorded config changes apply before the frame they preceded
+            event = self.history.events.get(self.cursor)
+            if event:
+                eng.apply_config_event(event)
+            inputs, dt = self.history.frame(self.cursor)
+            # the recorded advance flag, verbatim: it decides the shadow
+            # update, so shadow maps and images follow the live run
+            adv = "fused" if self.history.advance_fused(self.cursor) \
+                else "step"
+            self.cursor += 1
+            detached = self.mode == PlaybackMode.DEBUG_CUSTOM_MOVEMENT
+            if detached and controls is not None:
+                # mouse look and WASD flight; the recorded camera still
+                # drives the step
+                cam = self.detached_camera.rotated(
+                    float(controls.mouse_delta[0]),
+                    float(controls.mouse_delta[1]))
+                self.detached_camera = cam.float_position(
+                    _flight_accel(cam, controls.keys), dt)
+            img = eng.frame(inputs, dt, render=render, advance=adv)
+            if detached and render and self.detached_camera is not None:
+                img = eng.render_only(self.detached_camera)
+            return img, self.cursor >= self.history.num_frames
+
+        if self.mode == PlaybackMode.ONE_PAST_LAST_FRAME:
+            # Up: simulate one live frame, then pause
+            if controls is not None and bool(controls.keys[KEY_UP]):
+                img = eng.frame(InputState.idle(seed=eng.frame_index),
+                                render=render)
+                self.mode = PlaybackMode.ONE_PAST_LAST_PAUSE
+                return img, True
+            return None, True
+
+        if self.mode == PlaybackMode.ONE_PAST_LAST_PAUSE:
+            return None, True
+
+        # RUN: live simulation past the recording
+        img = eng.frame(controls or InputState.idle(seed=eng.frame_index),
+                        render=render)
+        return img, True
+
+    # -- verification ---------------------------------------------------------
+    def replay_all(self, render: bool = False) -> list[str]:
+        """Replay the rest of the recording; the world hash of every
+        frame."""
+        hashes = []
+        while self.cursor < self.history.num_frames:
+            self.step(render=render)
+            hashes.append(world_hash(self.engine.world))
+        return hashes
