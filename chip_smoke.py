@@ -43,6 +43,28 @@ Phases (any failure exits non-zero; no phase catches its own):
              turn): the same hashes, finite images unlike the live ones;
              then past the end, Up (one live frame, paused) and Right
              (RUN).
+  7. lights  the many-lights configuration: 1280x720, 200 asteroids, 256
+             point lights made from a seed (radii 40 to 90), 268 light-table
+             rows, light_tile_budget 96, two render systems. K1 (both
+             modes) and K2 on a frame's inputs against their plain versions
+             (exact) and the frame through kernels against plain versions
+             (1e-5); K3 with the frame's per-tile light lists against its
+             plain version (1e-5) and the loop over every light (equal); the
+             frame at budget 96 against budget 0 (torch.equal while
+             light_tile_overflow is 0); all 14 drop counters 0; launches a
+             frame; times of K3 with lists and dense, of select_tile_lights,
+             and ms/frame in turns budget 0, 96, 96, 0.
+  8. custom  the 1080p/10k engine again with a fragment-shading function on
+             the lit system and a draw callback on the light sources: K2
+             over every tile (twice a frame, 531 MB a launch) against its
+             plain version (exact) and one torch.gather; the frame through
+             kernels against plain versions; pixels the shading system does
+             not own equal the frame without it; launches a frame (K2
+             three); ms/frame with and without the function in turns; peak
+             device memory.
+  9. golden  a 256x144 engine with a cubemap skybox: the golden path
+             (backend="jnp") against the fused path on the card, and the
+             card against the CPU.
 The last three lines are the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 
@@ -89,6 +111,15 @@ REPLAY_DRAW_AT, REPLAY_DRAW_DISTANCE = 6, 1200.0
 REPLAY_BIG_SEED_AT = 2
 RECORD_TURNS, TURN_FRAMES = ("off", "on", "on", "off") * 5, 10
 CAPTURE_FRAME = 3  # frames 0 and 3 render maps at interval 3: both slots
+# phase 7: the JAX package's many-lights configuration, at its full size
+LIGHTS = dict(width=1280, height=720, capacity=1024, num_asteroids=200,
+              max_tris=24576, raster_tile_budget=192, trans_tile_budget=128)
+N_POINT_LIGHTS, LIGHT_TILE_BUDGET = 256, 96
+BUDGET_TURNS = (0, LIGHT_TILE_BUDGET, LIGHT_TILE_BUDGET, 0) * 3
+SHADE_TURNS = ("without", "with", "with", "without") * 3
+TCOUNT_BINS = (0, 1, 9, 17, 33, 49, 65, 81, 97)
+GOLDEN = dict(width=256, height=144, capacity=256, num_asteroids=64,
+              max_tris=8192)
 
 KERNELS = {  # record name -> (launch-count key, source, TPU kernel)
     "tile_raster": ("tile_raster",
@@ -102,8 +133,19 @@ KERNELS = {  # record name -> (launch-count key, source, TPU kernel)
     "fused_shade": ("fused_shade",
                     "render_engine_tpu_torch/csrc/fused_shade.cu",
                     "render_engine_tpu/render/shade_pallas.py:249"),
+    # K2 over every tile of a layer (phase 8: the K2 launches of its run
+    # whose slot planes hold every tile of the frame) and K3 over per-tile
+    # light lists (phase 7): their launches come from those phases' runs
+    "resolve_full_frame": ("resolve_full_frame",
+                           "render_engine_tpu_torch/csrc/resolve.cu",
+                           "render_engine_tpu/render/raster_pallas.py:476"),
+    "fused_shade_tile_lists": ("fused_shade_tile_lists",
+                               "render_engine_tpu_torch/csrc/fused_shade.cu",
+                               "render_engine_tpu/render/shade_pallas.py:249"),
 }
+MAIN_PATH = ("tile_raster", "tile_raster_one_pass", "resolve", "fused_shade")
 DROP_KEYS = 13  # 6 step counters and 7 render counters with shadows
+DROP_KEYS_LIGHTS = 14  # and light_tile_overflow with a light-list budget
 LIVE_BINS = (0, 1, 9, 17, 33, 65, 129, 257)  # K1 live candidates a tile
 
 
@@ -166,11 +208,11 @@ def max_abs(a, b):
 
 
 class Capture:
-    """Wrap a module function: keep a copy of every call's arguments, then
-    delegate."""
+    """Wrap a module function: keep a copy of every call's arguments (or
+    what ``note`` makes of them), then delegate."""
 
-    def __init__(self, module, name):
-        self.module, self.name = module, name
+    def __init__(self, module, name, note=None):
+        self.module, self.name, self.note = module, name, note
         self.fn = getattr(module, name)
         self.calls = []
 
@@ -179,8 +221,11 @@ class Capture:
 
         def keep(v):
             return v.clone() if isinstance(v, torch.Tensor) else v
-        self.calls.append(([keep(a) for a in args],
-                           {k: keep(v) for k, v in kw.items()}))
+        if self.note is not None:
+            self.calls.append(self.note(*args, **kw))
+        else:
+            self.calls.append(([keep(a) for a in args],
+                               {k: keep(v) for k, v in kw.items()}))
         return self.fn(*args, **kw)
 
     def __enter__(self):
@@ -205,8 +250,8 @@ class Plain:
                       (SP, "shade_tiles", SP.shade_tiles)]
         RP.tile_raster = RP.tile_raster_reference
         RP.resolve_attributes_pallas = (
-            lambda slot, rows, cfg=None: RP.resolve_attributes_reference(
-                slot, rows))
+            lambda slot, rows, cfg=None:
+            RP.resolve_attributes_reference(slot, rows))
         SP.shade_tiles = SP.fused_shade_reference
         return self
 
@@ -411,6 +456,40 @@ def k2_gather(slot, rows):
     return lambda: [torch.gather(table, 2, idx).reshape(a, tb, th, tw)]
 
 
+def kernel_record(name, tol, kern, plain, work, library=None, earlier=None,
+                  plain_reps=3):
+    """One kernel on captured inputs against its plain version (``tol`` 0:
+    exact): its device ms (in turns with an ``earlier`` library's), the
+    plain version's and the library call's, its bound and share."""
+    import torch
+
+    from render_engine_tpu_torch import kernel_bounds as KB
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = check_close(name, got, want, tol)
+    ms, earlier_ms = kernel_ms(name, kern, earlier)
+    call_ms = cuda_ms(kern, 20)
+    plain_ms = cuda_ms(plain, plain_reps)
+    library_ms = None
+    if library is not None:
+        check_close(f"{name} (torch.gather)", library(), want, 0.0)
+        library_ms = device_ms(library, 20)
+    bound_ms, bound_by = KB.bound(work["bytes"], work["ops"])
+    log(f"[kernels] {name}: max_abs_err {err:.3g} (tolerance {tol}) "
+        f"kernel {ms:.4f} ms (one call with its host cost "
+        f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms"
+        + ("" if library_ms is None else f", torch.gather "
+           f"{library_ms:.4f} ms")
+        + ("" if earlier_ms is None else f", earlier {earlier_ms:.4f} ms")
+        + f"; bound {bound_ms:.4f} ms by {bound_by} ({work}), share "
+        f"{bound_ms / ms:.3f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms, library_ms=library_ms,
+                earlier_ms=earlier_ms)
+
+
 def phase_build():
     from render_engine_tpu_torch import kernels
 
@@ -493,31 +572,9 @@ def phase_kernels(eng, earlier=None):
          lambda: [SP.fused_shade_reference(*a3, **kw3)],
          KB.fused_shade_work(*a3, **kw3), None),
     ]
-    rec = {}
-    for name, tol, kern, plain, work, library in cases:
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = check_close(name, got, want, tol)
-        ms, earlier_ms = kernel_ms(name, kern, earlier)
-        call_ms = cuda_ms(kern, 20)
-        plain_ms = cuda_ms(plain, 3)
-        library_ms = None
-        if library is not None:
-            check_close(f"{name} (torch.gather)", library(), want, 0.0)
-            library_ms = device_ms(library, 20)
-        bound_ms, bound_by = KB.bound(work["bytes"], work["ops"])
-        log(f"[kernels] {name}: max_abs_err {err:.3g} (tolerance {tol}) "
-            f"kernel {ms:.4f} ms (one call with its host cost "
-            f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms"
-            + ("" if library_ms is None else f", torch.gather "
-               f"{library_ms:.4f} ms")
-            + ("" if earlier_ms is None else f", earlier {earlier_ms:.4f} ms")
-            + f"; bound {bound_ms:.4f} ms by {bound_by} ({work}), share "
-            f"{bound_ms / ms:.3f}")
-        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         share_of_bound=bound_ms / ms, library_ms=library_ms,
-                         earlier_ms=earlier_ms)
+    rec = {name: kernel_record(name, tol, kern, plain, work, library,
+                               earlier=earlier)
+           for name, tol, kern, plain, work, library in cases}
 
     synthetic = [(f"synthetic K1 two_pass={tp}", 0.0, *synthetic_k1(tp, 3 + tp, a1[0].device),
                   RP.tile_raster, RP.tile_raster_reference)
@@ -689,9 +746,7 @@ def phase_slice(eng):
         if i >= WARMUP:
             times.append((time.perf_counter() - t0) * 1e3)
         per_frame = {k: n - before[k] for k, n in kernels.LAUNCHES.items()}
-        want = {"tile_raster": 1 + renders_map,
-                "tile_raster_one_pass": int(renders_map), "resolve": 1,
-                "fused_shade": 1}
+        want = frame_launches(renders_map)
         if per_frame != want:
             raise RuntimeError(f"frame {i} launched {per_frame}, expected "
                                f"{want}")
@@ -722,6 +777,15 @@ def phase_slice(eng):
     return launches
 
 
+def frame_launches(renders_map, resolve=1, tile_lists=0):
+    """The launches one frame must make: K1 twice when it renders a shadow
+    map and once otherwise, K2 ``resolve`` times, K3 once (``tile_lists``:
+    1 when it loops over lists)."""
+    return {"tile_raster": 1 + int(renders_map),
+            "tile_raster_one_pass": int(renders_map), "resolve": resolve,
+            "fused_shade": 1, "fused_shade_tile_lists": tile_lists}
+
+
 def launch_delta(before):
     from render_engine_tpu_torch import kernels
 
@@ -738,23 +802,32 @@ def timed_frame(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def record_turns(eng):
-    """Median ms/frame of TURN_FRAMES rendered frames per turn, recording
-    off and on in RECORD_TURNS order (each turn from a reset); the medians
-    of the turn medians."""
-    turns = {"off": [], "on": []}
-    for which in RECORD_TURNS:
-        eng.config.record_history = which == "on"
-        eng.reset()
+def turn_medians(eng, turns, start, label, what=""):
+    """Median ms/frame of TURN_FRAMES rendered frames a turn, each turn
+    begun by ``start(which)`` (which resets the engine into that kind);
+    per kind the median of its turn medians."""
+    meds = {}
+    for which in turns:
+        start(which)
         times = [timed_frame(lambda: eng.frame(None, DT))[1]
                  for _ in range(TURN_FRAMES)]
-        turns[which].append(statistics.median(times))
+        meds.setdefault(which, []).append(statistics.median(times))
+    for which, m in meds.items():
+        log(f"[{label}] {what}{which}: {TURN_FRAMES} frames a turn, turn "
+            f"medians {', '.join(f'{t:.2f}' for t in m)} ms; median "
+            f"{statistics.median(m):.2f} ms/frame")
+    return {k: statistics.median(v) for k, v in meds.items()}
+
+
+def record_turns(eng):
+    """ms/frame with recording off and on, in RECORD_TURNS order."""
+    def start(which):
+        eng.config.record_history = which == "on"
+        eng.reset()
+
+    turns = turn_medians(eng, RECORD_TURNS, start, "replay", "recording ")
     eng.config.record_history = False
-    for which, meds in turns.items():
-        log(f"[replay] recording {which}: {TURN_FRAMES} frames a turn, "
-            f"turn medians {', '.join(f'{m:.2f}' for m in meds)} ms; median "
-            f"{statistics.median(meds):.2f} ms/frame")
-    return {k: statistics.median(v) for k, v in turns.items()}
+    return turns
 
 
 def record_live(eng):
@@ -835,7 +908,7 @@ def replay_checked(eng, eng2, history, live):
         raise RuntimeError("replay: shadow state differs at the end")
     if eng2.camera.draw_distance != REPLAY_DRAW_DISTANCE:
         raise RuntimeError("replay: the draw-distance change was lost")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
     if missing:
         raise RuntimeError(f"replay launched no {missing}")
     log(f"[replay] {len(REPLAY_RENDER)} replayed frames: world hashes, "
@@ -933,6 +1006,387 @@ def phase_replay(eng):
     return launches
 
 
+def build_lights_engine():
+    """The many-lights engine: the space scene at 720p with 200 asteroids
+    and 256 seeded point lights, 268 light-table rows, two render
+    systems."""
+    import numpy as np
+
+    from render_engine_tpu_torch.demo.space_scene import build_space_engine
+    from render_engine_tpu_torch.ecs import registry as R
+    from render_engine_tpu_torch.ecs import world as W
+
+    eng = build_space_engine(device="cuda", **LIGHTS)
+    eng.config.record_history = False
+    nl = N_POINT_LIGHTS
+    rng = np.random.default_rng(0)
+    pos = (np.array([1000.0, 1000.0, 900.0])
+           + rng.uniform(-200, 200, (nl, 3))).astype(np.float32)
+    eng.world, _ = W.spawn_host(
+        eng.world, nl, position=pos,
+        sortable=np.full(nl, R.SORTABLE_POINT, np.int32),
+        light_diffuse=rng.uniform(0.2, 1.0, (nl, 3)).astype(np.float32),
+        light_atten=np.full((nl, 2), [0.05, 0.01], np.float32),
+        light_radius=rng.uniform(40.0, 90.0, nl).astype(np.float32))
+    eng.config.render = dataclasses.replace(
+        eng.config.render, max_point_lights=nl, max_spot_lights=8,
+        light_tile_budget=LIGHT_TILE_BUDGET)
+    eng.finalize_scene()
+    if len(eng.compiled_systems.names) != 2:
+        raise RuntimeError(f"render systems {eng.compiled_systems.names}")
+    return eng
+
+
+def phase_lights():
+    """K3's tile-list branch on the many-lights frame. Returns the kernel
+    record and the launches of the path's counted run."""
+    import torch
+
+    from render_engine_tpu_torch import kernel_bounds as KB
+    from render_engine_tpu_torch import kernels
+    from render_engine_tpu_torch.render import frame as F
+    from render_engine_tpu_torch.render import raster_pallas as RP
+    from render_engine_tpu_torch.render import shade_pallas as SP
+
+    t0 = time.perf_counter()
+    eng = build_lights_engine()
+    listed = eng.config.render
+    dense = dataclasses.replace(listed, light_tile_budget=0)
+    log(f"[lights] engine built in {time.perf_counter() - t0:.1f} s: "
+        f"{LIGHTS}, {N_POINT_LIGHTS} point lights, light_tile_budget "
+        f"{LIGHT_TILE_BUDGET}, systems {eng.compiled_systems.names}")
+
+    def set_budget(budget):
+        eng.config.render = listed if budget else dense
+
+    def start_turn(budget):
+        eng.reset()  # restores the render settings too
+        set_budget(budget)
+
+    # the path's counted run: launches per frame and the 14 counters
+    kernels.reset_launch_counts()
+    interval = eng.config.shadow_update_interval
+    frames = 6
+    for i in range(frames):
+        before = dict(kernels.LAUNCHES)
+        renders_map = eng.shadow_state.tick % interval == 0
+        img = eng.frame(None, DT)
+        got, want = launch_delta(before), frame_launches(renders_map,
+                                                         tile_lists=1)
+        if got != want:
+            raise RuntimeError(f"lights frame {i} launched {got}, expected "
+                               f"{want}")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if tuple(img.shape) != (LIGHTS["height"], LIGHTS["width"], 3) or \
+            not bool(torch.isfinite(img).all()):
+        raise RuntimeError("lights: image")
+    drops = eng.drop_stats()
+    log(f"[lights] launches in {frames} frames: {launches}; drop counters "
+        f"({len(drops)}): {drops}")
+    if len(drops) != DROP_KEYS_LIGHTS or any(drops.values()):
+        raise RuntimeError(f"expected {DROP_KEYS_LIGHTS} drop counters, "
+                           "all 0")
+
+    # one more frame, which renders a shadow map: K1 in both modes and K2
+    # at this path's shapes (other tile counts and budgets than the
+    # headline's) against their plain versions, exact
+    with Capture(RP, "tile_raster") as k1, \
+            Capture(RP, "resolve_attributes_pallas") as k2:
+        eng.frame(None, DT)
+    modes = [kw["two_pass"] for _, kw in k1.calls]
+    if modes != [False, True] or len(k2.calls) != 1:
+        raise RuntimeError(f"lights: K1 calls with two_pass {modes}, "
+                           f"{len(k2.calls)} K2 calls")
+    for (a, kw), name in zip(k1.calls, ("K1 one-pass", "K1")):
+        err = check_close(f"lights {name}", RP.tile_raster(*a, **kw),
+                          RP.tile_raster_reference(*a, **kw), 0.0)
+        log(f"[lights] {name} on this frame's inputs (data "
+            f"{tuple(a[0].shape)}, tile_budget {kw['tile_budget']}, "
+            f"trans_budget {kw['trans_budget']}): max_abs_err {err:.3g} "
+            "(exact)")
+    a2 = k2.calls[0][0]
+    err = check_close("lights K2", [RP.resolve_attributes_pallas(*a2)],
+                      [RP.resolve_attributes_reference(*a2)], 0.0)
+    log(f"[lights] K2 on this frame's inputs (slot {tuple(a2[0].shape)}, "
+        f"rows {tuple(a2[1].shape)}): max_abs_err {err:.3g} (exact)")
+    del k1, k2
+
+    # the same state through the kernels at budget 96, through the plain
+    # versions, and through the kernels at budget 0
+    with Capture(SP, "shade_tiles") as k3, \
+            Capture(F, "select_tile_lights") as sel:
+        img_l = eng.render()
+    with Plain():
+        img_p = eng.render()
+    set_budget(0)
+    img_d = eng.render()
+    set_budget(LIGHT_TILE_BUDGET)
+    torch.cuda.synchronize()
+    err = float((img_l - img_p).abs().max())
+    log(f"[lights] kernels vs plain versions, whole 720p frame with tile "
+        f"light lists: max abs diff {err:.3g}")
+    if not err <= 1e-5:
+        raise RuntimeError(f"lights frame through the kernels differs by "
+                           f"{err}")
+    same = torch.equal(img_l, img_d)
+    log(f"[lights] frame at budget {LIGHT_TILE_BUDGET} against budget 0: "
+        f"torch.equal {same}, max abs diff "
+        f"{float((img_l - img_d).abs().max()):.3g}; image max "
+        f"{float(img_l.max()):.3f}, mean {float(img_l.mean()):.4f}")
+    if not same:
+        raise RuntimeError("the tile-listed frame differs from the dense "
+                           "one with no overflow")
+    a3, kw3 = k3.calls[0]
+    tlist, tcount = kw3["tlist"], kw3["tcount"]
+    if tlist is None or tuple(tlist.shape) != (a3[0].shape[0],
+                                               LIGHT_TILE_BUDGET):
+        raise RuntimeError("K3 got no tile light lists")
+    bins = [int(((tcount >= lo) & (tcount < hi)).sum())
+            for lo, hi in zip(TCOUNT_BINS, TCOUNT_BINS[1:])]
+    n_live = int(a3[6][0])
+    log(f"[lights] K3 inputs: rows {tuple(a3[0].shape)}, ltab "
+        f"{tuple(a3[5].shape)} ({a3[5].numel() * 4} B of shared memory), "
+        f"{n_live} live lights, tlist {tuple(tlist.shape)}; tcount a tile: "
+        + ", ".join(f"[{lo},{hi}): {n}" for lo, hi, n in
+                    zip(TCOUNT_BINS, TCOUNT_BINS[1:], bins))
+        + f"; max {int(tcount.max())}, mean "
+        f"{float(tcount.double().mean()):.1f}; K3 blocks an SM with this "
+        f"table: {SP.blocks_per_sm(a3[5].shape[0])} (with the headline's 20 "
+        f"rows: {SP.blocks_per_sm(20)})")
+    kw_dense = dict(kw3, tlist=None, tcount=None)
+    rec = kernel_record(
+        "fused_shade_tile_lists", 1e-5,
+        lambda: [SP.shade_tiles(*a3, **kw3)],
+        lambda: [SP.fused_shade_reference(*a3, **kw3)],
+        KB.fused_shade_work(*a3, **kw3), plain_reps=1)
+    out_l = SP.shade_tiles(*a3, **kw3)
+    out_d = SP.shade_tiles(*a3, **kw_dense)
+    if not torch.equal(out_l, out_d):
+        raise RuntimeError("K3 with lists differs from K3 over every light")
+    dense_rec = kernel_record(
+        f"fused_shade over all {n_live} lights", 1e-5,
+        lambda: [SP.shade_tiles(*a3, **kw_dense)],
+        lambda: [SP.fused_shade_reference(*a3, **kw_dense)],
+        KB.fused_shade_work(*a3, **kw_dense), plain_reps=1)
+    sa, skw = sel.calls[0]
+    select_ms = device_ms(lambda: SP.select_tile_lights(*sa, **skw), 20)
+    select_host = cuda_ms(lambda: SP.select_tile_lights(*sa, **skw), 10)
+    log(f"[lights] K3 with lists {rec['ms']:.4f} ms against "
+        f"{dense_rec['ms']:.4f} ms over all lights (equal outputs); "
+        f"select_tile_lights {select_ms:.4f} ms of device time (one call "
+        f"with its host cost {select_host:.3f} ms)")
+    turns = turn_medians(eng, BUDGET_TURNS, start_turn, "lights", "budget ")
+    rec.update(dense_ms=dense_rec["ms"], dense_bound_ms=dense_rec["bound_ms"],
+               dense_bound_by=dense_rec["bound_by"], select_ms=select_ms,
+               tcount_max=int(tcount.max()),
+               tcount_mean=float(tcount.double().mean()),
+               ms_per_frame_budget_0=turns[0],
+               ms_per_frame_budget_96=turns[LIGHT_TILE_BUDGET])
+    return rec, launches, frames
+
+
+def custom_systems(eng):
+    """The engine's two systems, recompiled: the lit one with a
+    fragment-shading function over the normal, the albedo, the default
+    color and a uniform; the light sources with a draw callback (a sortable
+    filter, a gate on a tensor, a uniform write, the skybox). Returns the
+    compiled systems with and without the shading function."""
+    import torch
+
+    from render_engine_tpu_torch.ecs import registry as R
+    from render_engine_tpu_torch.render.render_system import compile_systems
+
+    lit, sources = eng.compiled_systems.src
+
+    def shade(sp):
+        tone = torch.as_tensor(sp.uniforms["tone"], dtype=torch.float32,
+                               device=sp.base_color.device)
+        n = 0.5 * (sp.normal + 1.0)
+        return (sp.base_color * tone + 0.2 * sp.albedo * n).clamp(0.0, 1.0)
+
+    def draw(dp):
+        cam = dp.get_camera()
+        dp.draw_models(*sources.model_ids, sortable=R.SORTABLE_SPOT,
+                       when=cam.position[2] > 0.0)
+        dp.write_uniform("emissive_boost",
+                         torch.ones((), device=dp.world.device))
+        dp.draw_skybox(cam.position[2] > 0.0)
+
+    sources = dataclasses.replace(sources, draw=draw)
+    toned = dataclasses.replace(lit, uniforms=lit.uniforms + (("tone", 0.8),))
+    return (compile_systems((dataclasses.replace(toned, shade=shade),
+                             sources), eng.bank),
+            compile_systems((lit, sources), eng.bank),
+            lambda sp: sp.base_color * float("nan"))
+
+
+def phase_custom(eng):
+    """K2 over every tile on the headline engine with custom shading.
+    Returns the kernel record and the launches of the path's counted
+    run."""
+    import torch
+
+    from render_engine_tpu_torch import kernel_bounds as KB
+    from render_engine_tpu_torch import kernels
+    from render_engine_tpu_torch.render import raster_pallas as RP
+    from render_engine_tpu_torch.render.render_system import compile_systems
+
+    eng.config.record_history = False
+    eng.reset()
+    default = eng.compiled_systems
+    shaded, unshaded, marker = custom_systems(eng)
+    eng.compiled_systems = shaded
+
+    # the path's counted run; a K2 launch is over every tile when its slot
+    # planes hold all of the frame's tiles
+    nt = -(-SLICE["height"] // 8) * -(-SLICE["width"] // 128)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    interval = eng.config.shadow_update_interval
+    frames = 6
+    with Capture(RP, "resolve_attributes_pallas",
+                 note=lambda slot, rows, *a, **kw: slot.shape[0]) as tiles:
+        for i in range(frames):
+            before = dict(kernels.LAUNCHES)
+            renders_map = eng.shadow_state.tick % interval == 0
+            img = eng.frame(None, DT)
+            got, want = launch_delta(before), frame_launches(renders_map,
+                                                             resolve=3)
+            seen = tiles.calls[3 * i:]
+            if got != want or len(seen) != 3 or seen[0] >= nt or \
+                    seen[1:] != [nt, nt]:
+                raise RuntimeError(f"custom frame {i} launched {got} with K2 "
+                                   f"over {seen} tiles, expected {want} with "
+                                   f"K2 over fewer than {nt}, {nt}, {nt}")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    launches["resolve_full_frame"] = sum(t == nt for t in tiles.calls)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[custom] launches in {frames} frames: {launches} (K2 three a "
+        "frame: the textured tiles, then every tile of the opaque and of "
+        f"the transparent layer); peak device memory {peak / 2**20:.0f} MiB")
+    if not bool(torch.isfinite(img).all()):
+        raise RuntimeError("custom: image has non-finite values")
+
+    with Capture(RP, "resolve_attributes_pallas") as k2:
+        img_s = eng.render()
+    with Plain():
+        img_p = eng.render()
+    eng.compiled_systems = unshaded
+    img_u = eng.render()
+    lit = shaded.src[0]
+    eng.compiled_systems = compile_systems(
+        (dataclasses.replace(lit, shade=marker), shaded.src[1]), eng.bank)
+    owned = torch.isnan(eng.render()).any(dim=-1)
+    eng.compiled_systems = default
+    img_0 = eng.render()
+    eng.compiled_systems = shaded
+    torch.cuda.synchronize()
+    err = float((img_s - img_p).abs().max())
+    log(f"[custom] kernels vs plain versions, whole 1080p frame with custom "
+        f"shading: max abs diff {err:.3g}")
+    if not err <= 1e-5:
+        raise RuntimeError(f"custom frame through the kernels differs by "
+                           f"{err}")
+    changed = (img_s != img_u).any(dim=-1)
+    log(f"[custom] the shading system owns {int(owned.sum())} pixels; "
+        f"{int(changed.sum())} differ from the frame without the function, "
+        f"{int((changed & ~owned).sum())} of them outside its pixels; the "
+        "draw callback's frame equals the static systems': "
+        f"{torch.equal(img_u, img_0)}")
+    if bool((changed & ~owned).any()) or not bool(changed.any()) \
+            or not bool(owned.any()):
+        raise RuntimeError("custom shading touched pixels it does not own, "
+                           "or none")
+    if not torch.equal(img_u, img_0):
+        raise RuntimeError("the draw callback (every light source drawn, "
+                           "boost x 1, skybox on) changed the frame")
+
+    full = [c for c in k2.calls if c[0][0].shape[0] == nt]
+    if len(k2.calls) != 3 or len(full) != 2:
+        raise RuntimeError(f"{len(k2.calls)} K2 calls, {len(full)} of them "
+                           "over every tile")
+    a2 = full[0][0]
+    covered = float((a2[0] >= 0).double().mean())
+    out_bytes = a2[1].shape[2] * a2[0].numel() * 4
+    log(f"[custom] K2 full-frame inputs: slot {tuple(a2[0].shape)}, rows "
+        f"{tuple(a2[1].shape)}, output {out_bytes / 1e6:.1f} MB, covered "
+        f"pixels {covered:.4f}")
+    rec = kernel_record(
+        "resolve_full_frame", 0.0,
+        lambda: [RP.resolve_attributes_pallas(*a2)],
+        lambda: [RP.resolve_attributes_reference(*a2)],
+        KB.resolve_work(*a2), k2_gather(*a2))
+
+    def start_turn(which):
+        eng.reset()
+        eng.compiled_systems = shaded if which == "with" else unshaded
+
+    turns = turn_medians(eng, SHADE_TURNS, start_turn, "custom",
+                         "shading function: ")
+    eng.compiled_systems = default
+    rec.update(ms_per_frame_with_shading=turns["with"],
+               ms_per_frame_without_shading=turns["without"],
+               peak_memory_bytes=peak, output_bytes=out_bytes)
+    return rec, launches, frames
+
+
+def image_agreement(a, b):
+    """Share of pixels within 2e-2, the median and the max of the per-pixel
+    max abs difference of two images."""
+    diff = (a - b).abs().amax(dim=-1)
+    return (float((diff < 2e-2).double().mean()), float(diff.median()),
+            float(diff.max()))
+
+
+def phase_golden():
+    """The golden path on a small engine with a cubemap skybox: against
+    the fused path on the card, and the card against the CPU."""
+    import torch
+
+    from render_engine_tpu_torch.demo.space_scene import build_space_engine
+    from render_engine_tpu_torch.render import skybox as SB
+    from render_engine_tpu_torch.render.frame import to_srgb_u8
+
+    imgs = {}
+    for dev in ("cpu", "cuda"):
+        eng = build_space_engine(device=dev, **GOLDEN)
+        eng.config.record_history = False
+        eng.set_skybox(SB.starfield_cubemap(64, device=eng.device))
+        for i in range(3):
+            eng.frame(frame_inputs(i), DT)
+        fused = eng.render()
+        eng.config.render = dataclasses.replace(eng.config.render,
+                                                backend="jnp")
+        imgs[dev] = (fused.cpu(), eng.render().cpu())
+        eng.set_skybox(SB.cubemap_rows(eng.cubemap))
+        rows = eng.render().cpu()
+        if not torch.allclose(rows, imgs[dev][1], rtol=0, atol=1e-6):
+            raise RuntimeError(f"golden on {dev}: the row sampler's "
+                               "background differs from the four-tap one")
+    for dev, (fused, golden) in imgs.items():
+        near, med, worst = image_agreement(fused, golden)
+        log(f"[golden] {dev}: fused against golden at {GOLDEN['width']}x"
+            f"{GOLDEN['height']} with shadows and a cubemap: "
+            f"{near:.4f} of pixels within 2e-2, median {med:.3g}, max "
+            f"{worst:.3g}")
+        if not (near > 0.98 and med <= 1e-5):
+            raise RuntimeError(f"golden on {dev} disagrees with the fused "
+                               "path")
+        if not bool(torch.isfinite(golden).all()) or \
+                float(golden.max()) < 0.5:
+            raise RuntimeError(f"golden on {dev}: blank or non-finite")
+    a, b = imgs["cuda"][1], imgs["cpu"][1]
+    far = float(((a - b).abs().amax(dim=-1) > 2.0 / 255.0).double().mean())
+    u8 = float((to_srgb_u8(a) != to_srgb_u8(b)).double().mean())
+    log(f"[golden] card against CPU: {far:.4%} of pixels differ by more "
+        f"than 2/255, u8 values differing {u8:.2%}")
+    if far > 5e-3:
+        raise RuntimeError("golden: the card's frame differs from the CPU's")
+
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace, set before CUDA
     # starts (phase 6 runs with deterministic algorithms)
@@ -987,10 +1441,23 @@ def main() -> int:
                  "tile_raster_one_pass": launches["tile_raster_one_pass"]
                  / frames, "resolve": launches["resolve"] / frames,
                  "fused_shade": launches["fused_shade"] / frames}
+    rec_c, launches_c, frames_c = phase_custom(eng)
+    del eng
+    torch.cuda.empty_cache()
+    rec_l, launches_l, frames_l = phase_lights()
+    phase_golden()
+    # the two branch rows take their launches from their own phase's run
+    rec.update(resolve_full_frame=rec_c, fused_shade_tile_lists=rec_l)
+    for name, run, n in (("resolve_full_frame", launches_c, frames_c),
+                         ("fused_shade_tile_lists", launches_l, frames_l)):
+        launches[name] = run[name]
+        per_frame[name] = run[name] / n
+        if run[name] == 0:
+            raise RuntimeError(f"{name}: no launch on its path")
 
     kern = [dict(name=n, route="cuda", source=src, replaces=rep,
                  launches=launches[key], launches_per_frame=per_frame[n],
-                 replay_launches=replay_launches[key], **rec[n])
+                 replay_launches=replay_launches.get(key, 0), **rec[n])
             for n, (key, src, rep) in KERNELS.items()]
     log(json.dumps({"kernels": kern}))
     log(smi)

@@ -74,11 +74,20 @@ def starfield_from_numpy(dirs, colors, device="cpu") -> Starfield:
     return Starfield(dirs=_t(dirs, device), colors=_t(colors, device))
 
 
+def cubemap_from_numpy(faces, device="cpu") -> torch.Tensor:
+    """(6, S, S, 3) cubemap faces as the port's raw cubemap tensor."""
+    return _t(np.asarray(faces, np.float32), device)
+
+
 def systems_from_numpy(model_system, sys_table, sys_lov, names,
-                       device="cpu") -> CompiledSystems:
+                       device="cpu", src=()) -> CompiledSystems:
+    """A JAX ``CompiledSystems``' tables as the port's. ``src``: the port's
+    own ``RenderSystem`` records when the systems carry callbacks (a
+    callback is written once per package, in jnp and in torch)."""
     return CompiledSystems(model_system=_t(model_system, device),
                            sys_table=_t(sys_table, device),
-                           sys_lov=_t(sys_lov, device), names=tuple(names))
+                           sys_lov=_t(sys_lov, device), names=tuple(names),
+                           src=tuple(src))
 
 
 def shadow_state_from_numpy(maps, light_mats, slot_entity, slot_face, cursor,

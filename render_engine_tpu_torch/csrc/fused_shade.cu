@@ -372,3 +372,18 @@ extern "C" int launch_fused_shade(
   rek::fused_shade_kernel<<<nt, rek::kThreads, smem, stream>>>(args);
   return cudaGetLastError();
 }
+
+// Blocks of the kernel that one SM holds at once with a light table of `nl`
+// rows in dynamic shared memory (the CUDA occupancy calculator's answer for
+// this build's registers and static shared memory), or -1 on an error.
+extern "C" int fused_shade_blocks_per_sm(int nl) {
+  const size_t smem = static_cast<size_t>(nl) * rek::kLCol * sizeof(float);
+  if (rek::allow_smem(rek::fused_shade_kernel, smem) != cudaSuccess) return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, rek::fused_shade_kernel, rek::kThreads, smem) !=
+      cudaSuccess) {
+    return -1;
+  }
+  return blocks;
+}

@@ -272,6 +272,7 @@ def space_config(*, capacity: int = 256, num_asteroids: int = 40,
                  shadow_tile_budget: float = 0.28, normal_maps: bool = True,
                  shadow_update_interval: int | None = None,
                  shadow_pcf_scale: int | None = None,
+                 light_tile_budget: int | None = None,
                  shadow_slots: int | None = None,
                  raster_tile_budget: int | None = None,
                  collision_large_budget: int | None = None,
@@ -295,6 +296,7 @@ def space_config(*, capacity: int = 256, num_asteroids: int = 40,
         render=RenderSettings(
             width=width, height=height, max_tris=max_tris,
             max_point_lights=8, max_spot_lights=8,
+            light_tile_budget=light_tile_budget or 0,
             shadow_tile_budget=shadow_tile_budget,
             texture_tile_budget=0.04 if big else 0.5,
             raster=RasterConfig(

@@ -9,9 +9,11 @@ it through ``ctypes``. Nothing is built or loaded at import time: the CPU
 tests import every module on machines without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
-where it launches its kernel and nowhere else. ``tile_raster`` counts
-every K1 launch; ``tile_raster_one_pass`` also counts those in its one-pass
-(shadow-map) mode.
+where it launches its kernel and nowhere else. ``tile_raster``, ``resolve``
+and ``fused_shade`` count every launch of K1, K2 and K3; two more keys
+also count the launches of one branch: ``tile_raster_one_pass`` (K1's
+shadow-map mode) and ``fused_shade_tile_lists`` (K3 looping over per-tile
+light lists).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"tile_raster": 0, "tile_raster_one_pass": 0, "resolve": 0,
-            "fused_shade": 0}
+            "fused_shade": 0, "fused_shade_tile_lists": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +48,7 @@ _SIGNATURES = {
     "launch_resolve": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "launch_fused_shade": [*[_VP] * 16, *[_I] * 10, _F, _F, *[_I] * 4,
                            _F, _F, _VP],
+    "fused_shade_blocks_per_sm": [_I],
 }
 
 _lock = threading.Lock()

@@ -123,6 +123,21 @@ class ModelBank:
         return pack_spec_shin(self.mat_specular, self.mat_shininess)
 
     @property
+    def mat_specular_eff(self) -> torch.Tensor:
+        """Specular strengths as every shading path consumes them: raw when
+        the exponent is uniform, else quantized like the packed channel."""
+        if self.uniform_shininess() is not None:
+            return self.mat_specular
+        return unpack_spec_shin(self.mat_spec_shin_packed)[0]
+
+    @property
+    def mat_shininess_eff(self) -> torch.Tensor:
+        """Exponents as consumed (integer-rounded when they vary)."""
+        if self.uniform_shininess() is not None:
+            return self.mat_shininess
+        return unpack_spec_shin(self.mat_spec_shin_packed)[1]
+
+    @property
     def num_models(self) -> int:
         return len(self.names)
 

@@ -1,13 +1,23 @@
 """Frame composition: world -> final (H, W, 3) linear image.
 
-Port of the fused tiled path of ``render_engine_tpu/render/frame.py``:
-``render_frame`` -> ``tiled_fused_core`` runs binning, the packed
-candidate rows, K1 (tile raster, two layers), K2 (resolve of the
-texture-budgeted tiles) with the texture override, the per-slot PCF
-factor tiles of the shadow maps, K3 (fused shade), and the compose over
-the background. The port always takes this path, on the CPU as well (the
-JAX package's jnp golden path, custom shading, draw callbacks and tile
-light lists are not ported yet).
+Port of ``render_engine_tpu/render/frame.py``. ``render_frame`` first runs
+the render systems' draw callbacks (instance gate, this frame's uniform
+rows, skybox toggle), then takes one of two paths:
+
+* the fused tiled path (``backend="auto"``, on every device):
+  ``tiled_fused_core`` runs binning, the packed candidate rows, K1 (tile
+  raster, two layers), K2 (resolve of the texture-budgeted tiles) with the
+  texture override, the per-slot PCF factor tiles of the shadow maps, the
+  per-tile light lists (``light_tile_budget`` > 0), K3 (fused shade), then,
+  for systems with a fragment-shading function, ``_fused_custom_shading``
+  per layer (K2 over every tile, the G-buffer from its channels, the user
+  function on its system's pixels), and the compose over the background;
+* the golden path (``backend="jnp"``, or a custom ``shadow_factor``): the
+  image-layout raster and G-buffer resolve of ``raster_jnp.py`` and
+  ``lighting.shade`` per layer, with the same systems semantics.
+
+The JAX package's non-fused tiled path (``fused_shading=False`` on its
+Pallas backend) is not ported.
 """
 
 from __future__ import annotations
@@ -26,9 +36,15 @@ from render_engine_tpu_torch.render import skybox as SB
 from render_engine_tpu_torch.render.geometry import (build_triangle_batch,
                                                      perturb_normal,
                                                      to_screen)
-from render_engine_tpu_torch.render.raster_jnp import RasterConfig
-from render_engine_tpu_torch.render.shade_pallas import fused_shade
-from render_engine_tpu_torch.render.textures import sample_atlas_rows
+from render_engine_tpu_torch.render.raster_jnp import (
+    RasterConfig, rasterize_depth_winner, resolve_gbuffer)
+from render_engine_tpu_torch.render.shade_pallas import (fused_shade,
+                                                         pack_lights,
+                                                         select_tile_lights)
+from render_engine_tpu_torch.render.textures import (sample_atlas,
+                                                     sample_atlas_rows)
+
+BACKENDS = ("auto", "jnp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +57,9 @@ class RenderSettings:
     max_point_lights: int = 64
     max_spot_lights: int = 16
     clear_color: tuple = (0.0, 0.0, 0.0)
+    # "auto": the fused tiled path (K1, K2, K3) on every device; "jnp":
+    # the golden image-layout path
+    backend: str = "auto"
     # atlas sampling of the transparent layer (each layer costs a resolve)
     texture_transparent: bool = False
     # fractions of screen tiles whose PCF factors (per shadow slot, among
@@ -48,33 +67,186 @@ class RenderSettings:
     # computed, densest tiles first; overflow tiles stay lit / untextured
     shadow_tile_budget: float = 1.0
     texture_tile_budget: float = 1.0
+    # per-tile light lists on the fused path: each tile's light loop covers
+    # only the lights whose influence sphere meets its view pyramid,
+    # bit-identical to the loop over every live light until a tile holds
+    # more than this many (counted in light_tile_overflow). 0 = off.
+    light_tile_budget: int = 0
+
+
+def _gate_skybox(background, skybox_on, settings):
+    """A draw callback's skybox toggle (None = as configured): off replaces
+    the sampled background with the clear color."""
+    if skybox_on is None:
+        return background
+    dev = background.device
+    return torch.where(
+        torch.as_tensor(skybox_on, dtype=torch.bool, device=dev), background,
+        torch.tensor(settings.clear_color, dtype=torch.float32, device=dev))
 
 
 def render_frame(world, camera, bank, settings: RenderSettings, *,
                  cubemap=None, atlas=None, shadow_state=None,
-                 systems=None) -> torch.Tensor:
+                 shadow_factor=None, systems=None,
+                 inputs=None) -> torch.Tensor:
     """Deferred-render one frame; float32 (H, W, 3) linear color.
+
     ``shadow_state``: a ``shadows.ShadowState`` whose maps PCF-attenuate
-    the lights that own its slots (opaque layer)."""
+    the lights that own its slots (opaque layer). ``shadow_factor``: a
+    custom callback (kind, index, world_pos) -> factor in its place; it
+    cannot run inside K3's light loop, so the frame takes the golden path.
+    ``systems``: ``render_system.CompiledSystems``, folded into the pass as
+    per-triangle data, with their draw and shading callbacks. ``inputs``:
+    the frame's ``InputState`` (tensors), which draw callbacks read."""
+    from render_engine_tpu_torch.render import render_system as RS
+
+    if settings.backend not in BACKENDS:
+        raise ValueError(f"backend {settings.backend!r} is none of "
+                         f"{BACKENDS}")
     h, w = settings.height, settings.width
-    batch = to_screen(build_triangle_batch(world, bank, camera,
-                                           max_tris=settings.max_tris,
-                                           systems=systems), w, h)
+    draw_ctx = None
+    if systems is not None and systems.has_draw_callbacks():
+        draw_ctx = RS.run_draw_callbacks(systems, world, camera, inputs, bank)
+    batch = to_screen(build_triangle_batch(
+        world, bank, camera, max_tris=settings.max_tris, systems=systems,
+        instance_mask=None if draw_ctx is None else draw_ctx.allowed), w, h)
     ent_attrs = None
     if systems is not None:
-        from render_engine_tpu_torch.render.render_system import (
-            entity_shade_attrs)
-
-        ent_attrs = entity_shade_attrs(world, systems)
+        ent_attrs = RS.entity_shade_attrs(
+            world, systems,
+            sys_table=None if draw_ctx is None else draw_ctx.sys_table)
     lights = L.extract_lights(world, max_dir=settings.max_dir_lights,
                               max_point=settings.max_point_lights,
                               max_spot=settings.max_spot_lights)
-    background = SB.background_for(camera, cubemap, h, w,
-                                   settings.clear_color)
+    background = _gate_skybox(
+        SB.background_for(camera, cubemap, h, w, settings.clear_color),
+        None if draw_ctx is None else draw_ctx.skybox_on, settings)
+    if settings.backend == "jnp" or shadow_factor is not None:
+        return _render_frame_golden(
+            world, camera, bank, settings, batch=batch, lights=lights,
+            background=background, ent_attrs=ent_attrs, atlas=atlas,
+            shadow_state=shadow_state, shadow_factor=shadow_factor,
+            systems=systems, draw_ctx=draw_ctx)
+    tri_sys = None
+    if systems is not None and systems.has_shade_callbacks():
+        tri_sys = RS.triangle_system_ids(batch, world, systems)
     return tiled_fused_core(batch, lights, bank, settings, camera, width=w,
                             h_total=h, h_local=h, y_off=0.0,
                             background=background, ent_attrs=ent_attrs,
-                            atlas=atlas, shadow_state=shadow_state)
+                            atlas=atlas, shadow_state=shadow_state,
+                            systems=systems, draw_ctx=draw_ctx,
+                            tri_sys=tri_sys)
+
+
+def _render_frame_golden(world, camera, bank, settings, *, batch, lights,
+                         background, ent_attrs, atlas, shadow_state,
+                         shadow_factor, systems, draw_ctx) -> torch.Tensor:
+    """The golden path: image-layout raster and G-buffer per layer,
+    ``lighting.shade``, custom shading, then the transparent layer blended
+    over the lit image (no shadow lookups on it)."""
+    from render_engine_tpu_torch.render import render_system as RS
+
+    h, w = settings.height, settings.width
+    depth, winner = rasterize_depth_winner(batch, h, w, settings.raster,
+                                           ~batch.transparent)
+    t_depth, t_winner = rasterize_depth_winner(batch, h, w, settings.raster,
+                                               batch.transparent)
+    with_spec = atlas is not None and bank.has_specular_maps()
+    with_emis = atlas is not None and bank.has_emissive_maps()
+    # dissolve maps only matter on the transparent layer (per-pixel alpha)
+    with_diss = atlas is not None and bank.has_dissolve_maps()
+
+    def resolve(d_, wn_, dissolve):
+        out = resolve_gbuffer(batch, bank, d_, wn_, atlas=atlas,
+                              with_specular=with_spec,
+                              with_emissive=with_emis,
+                              with_dissolve=dissolve)
+        if not (with_spec or with_emis or dissolve):
+            return out, None, None, None
+        out = list(out)
+        g = out.pop(0)
+        spec = out.pop(0) if (with_spec or with_emis) else None
+        emis = out.pop(0) if with_emis else None
+        diss = out.pop(0) if dissolve else None
+        return g, spec, emis, diss
+
+    def material(g, table):
+        return table[g.material.clamp(0, table.shape[0] - 1).long()]
+
+    gbuf, spec_img, emis_mul, _ = resolve(depth, winner, False)
+    t_gbuf, t_spec_img, t_emis_mul, t_diss_mul = resolve(t_depth, t_winner,
+                                                         with_diss)
+    em_img = t_em_img = t_alpha = None
+    if with_emis:
+        em_img = material(gbuf, bank.mat_emissive) * emis_mul
+        t_em_img = material(t_gbuf, bank.mat_emissive) * t_emis_mul
+        t_alpha = material(t_gbuf, bank.mat_alpha).clamp(0.0, 1.0)
+    if ent_attrs is not None:
+        # per-pixel tint / emissive / alpha from the winner triangle's
+        # entity's system row
+        sa = ent_attrs[batch.entity.clamp(0, world.capacity - 1).long()]
+        tri_mat_em = bank.mat_emissive[batch.material.clamp(
+            0, bank.mat_emissive.shape[0] - 1).long()]
+        tri_em = torch.where(sa[:, 0] > 0.5,
+                             tri_mat_em.clamp(min=1.0) * sa[:, 1], tri_mat_em)
+
+        def apply_sys(g):
+            tri = g.tri_id.clamp(0, batch.budget - 1).long()
+            cm = g.covered()
+            alb = g.albedo * torch.where(cm[..., None], sa[tri, 2:5], 1.0)
+            return (dataclasses.replace(g, albedo=alb),
+                    torch.where(cm, tri_em[tri], 0.0),
+                    torch.where(cm, sa[tri, 5], 1.0))
+
+        gbuf, em_img, _ = apply_sys(gbuf)
+        t_gbuf, t_em_img, t_asc = apply_sys(t_gbuf)
+        if emis_mul is not None:
+            em_img = em_img * emis_mul
+            t_em_img = t_em_img * t_emis_mul
+        t_alpha = (material(t_gbuf, bank.mat_alpha) * t_asc).clamp(0.0, 1.0)
+
+    if shadow_factor is None and shadow_state is not None:
+        shadow_factor = SHD.make_shadow_factor(
+            shadow_state, world,
+            {"dir": lights.dir_entity, "spot": lights.sp_entity,
+             "point": lights.pt_entity})
+    color = L.shade(gbuf, lights, bank, camera.position,
+                    background=background, shadow_factor=shadow_factor,
+                    emissive_image=em_img, specular_image=spec_img)
+    shades = systems is not None and systems.has_shade_callbacks()
+    if shades:
+        color = RS.apply_custom_shading(color, gbuf, winner, batch, world,
+                                        camera, lights, systems, draw_ctx)
+    t_lit = L.shade(t_gbuf, lights, bank, camera.position, background=color,
+                    emissive_image=t_em_img, specular_image=t_spec_img)
+    if shades:
+        t_lit = RS.apply_custom_shading(t_lit, t_gbuf, t_winner, batch,
+                                        world, camera, lights, systems,
+                                        draw_ctx)
+    if t_alpha is None:
+        t_alpha = material(t_gbuf, bank.mat_alpha)
+    alpha = t_alpha[..., None]
+    if t_diss_mul is not None:
+        alpha = alpha * t_diss_mul[..., None]
+    in_front = t_gbuf.covered() & (t_gbuf.depth <= gbuf.depth)
+    color = torch.where(in_front[..., None],
+                        alpha * t_lit + (1.0 - alpha) * color, color)
+    return color.clamp(0.0, 1.0)
+
+
+def _tall_pixel_centers(tids, tiles_x, th, twd):
+    """Pixel-center (px, py), each (NT * th, tw) float32, of the tiles
+    ``tids`` in the tall layout (tile after tile, band-local rows)."""
+    nt, dev = tids.shape[0], tids.device
+    oy = (torch.div(tids, tiles_x, rounding_mode="floor") * th).to(
+        torch.float32)
+    ox = ((tids % tiles_x) * twd).to(torch.float32)
+    py = (oy[:, None, None] + torch.arange(th, dtype=torch.float32,
+                                           device=dev)[None, :, None]) + 0.5
+    px = (ox[:, None, None] + torch.arange(twd, dtype=torch.float32,
+                                           device=dev)[None, None, :]) + 0.5
+    return (px.expand(nt, th, twd).reshape(nt * th, twd),
+            py.expand(nt, th, twd).reshape(nt * th, twd))
 
 
 def _texture_override(res, atlas, tiles_x, th, twd, tids=None,
@@ -84,19 +256,10 @@ def _texture_override(res, atlas, tiles_x, th, twd, tids=None,
     th, tw): [rgb | flag] (+ spec / emissive / dissolve deltas, + the
     normal-mapped normal and flag), channels leading."""
     a, nt = res.shape[0], res.shape[1]
-    dev = res.device
     ch = res.reshape(a, nt * th, twd)
     if tids is None:
-        tids = torch.arange(nt, device=dev)
-    oy = (torch.div(tids, tiles_x, rounding_mode="floor") * th).to(
-        torch.float32)
-    ox = ((tids % tiles_x) * twd).to(torch.float32)
-    py = (oy[:, None, None] + torch.arange(th, dtype=torch.float32,
-                                           device=dev)[None, :, None]) + 0.5
-    px = (ox[:, None, None] + torch.arange(twd, dtype=torch.float32,
-                                           device=dev)[None, None, :]) + 0.5
-    py = py.expand(nt, th, twd).reshape(nt * th, twd)
-    px = px.expand(nt, th, twd).reshape(nt * th, twd)
+        tids = torch.arange(nt, device=res.device)
+    px, py = _tall_pixel_centers(tids, tiles_x, th, twd)
 
     x0, y0, x1, y1, x2, y2 = ch[0], ch[1], ch[2], ch[3], ch[4], ch[5]
     l0 = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)
@@ -287,12 +450,71 @@ def _per_slot_factor_tiles(shadow, d, wn, tiles_x, th, twd, width, h_total,
     return f.contiguous(), inv.contiguous()
 
 
+def _fused_custom_shading(shaded, s, d, wn, rows, tri_sys, camera, lights,
+                          systems, uniform_writes, bank, atlas, tiles_x, th,
+                          twd, width, h_total, y_off, out_base=0,
+                          textured=True):
+    """Custom fragment shading on the fused path, a hook after K3.
+
+    K3 resolves winner attributes in place and never forms a G-buffer, but
+    shading functions read one (``ShadeParam``). So, only when a system has
+    a shading function, K2 resolves every tile of this layer, the G-buffer
+    comes from its channels, and the layer's color (channels ``out_base``
+    to ``out_base + 3`` of ``shaded``: 0 opaque, 3 transparent) is
+    rewritten on the pixels those systems own. ``base_color`` is K3's own
+    result, so shadows, tile light lists and texture overrides are in it.
+    ``textured``: whether K3 textured this layer, so that
+    ``ShadeParam.albedo`` is what the lighting consumed."""
+    from render_engine_tpu_torch.render.render_system import (
+        shade_systems_color)
+
+    nt = s.shape[0]
+    res = RP.resolve_attributes_pallas(s, rows)
+    ch = res.reshape(res.shape[0], nt * th, twd)
+    d_t = d.reshape(nt * th, twd)
+    wn_t = wn.reshape(nt * th, twd)
+    # pixel centers: the barycentrics take the band-local y (a band of rows
+    # rasters with y-shifted triangles), the unprojection the global row
+    px, py = _tall_pixel_centers(torch.arange(nt, device=s.device), tiles_x,
+                                 th, twd)
+    gbuf, extras = RP._gbuffer_from_channels(
+        ch, d_t, wn_t, h_total, width, T.inv44(camera.proj_view()), px=px,
+        py=py, ndc_py=py + float(y_off))
+    if atlas is not None and textured:
+        mat_safe = gbuf.material.clamp(0, bank.mat_textures.shape[0]
+                                       - 1).long()
+        layer = bank.mat_texture[mat_safe]
+        tex = sample_atlas(atlas, layer, extras["uv"])
+        normal = gbuf.normal
+        if bank.has_normal_maps():
+            nlayer = bank.mat_texture_norm[mat_safe]
+            nsamp = sample_atlas(atlas, nlayer, extras["uv"])
+            pert = perturb_normal(gbuf.normal, extras["tangent"],
+                                  extras["tangent_w"], nsamp)
+            normal = torch.where((nlayer >= 0)[..., None], pert, gbuf.normal)
+        gbuf = dataclasses.replace(
+            gbuf, normal=normal,
+            albedo=torch.where((layer >= 0)[..., None], tex, gbuf.albedo))
+    covered = wn_t >= 0
+    px_sys = tri_sys[wn_t.clamp(0, tri_sys.shape[0] - 1).long()]
+    color = shaded[out_base:out_base + 3].permute(1, 2, 3, 0).reshape(
+        nt * th, twd, 3)
+    color = shade_systems_color(color, gbuf, px_sys, covered, camera, lights,
+                                systems, uniform_writes)
+    shaded[out_base:out_base + 3] = color.reshape(nt, th, twd, 3).permute(
+        3, 0, 1, 2)
+    return shaded
+
+
 def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
                      width, h_total, h_local, y_off, background, ent_attrs,
-                     atlas=None, shadow_state=None) -> torch.Tensor:
+                     atlas=None, shadow_state=None, systems=None,
+                     draw_ctx=None, tri_sys=None) -> torch.Tensor:
     """Raster + resolve + fused shading over the tiles covering image rows
     [y_off, y_off + h_local); ``background`` is the matching
-    (h_local, width, 3) rows. Returns the clipped (h_local, width, 3)."""
+    (h_local, width, 3) rows. Returns the clipped (h_local, width, 3).
+    ``tri_sys``: per-triangle system ids, given when a system of
+    ``systems`` has a fragment-shading function."""
     cfg = settings.raster
     th, twd = cfg.tile_h, cfg.tile_w
     tiles_x, tiles_y = -(-width // twd), -(-h_local // th)
@@ -357,16 +579,39 @@ def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
             shadow_state, d, wn, tiles_x, th, twd, width, h_total, inv_pv,
             y_off, settings.shadow_tile_budget)
         sent = shadow_state.slot_entity
+    tile_lights = None
+    if settings.light_tile_budget > 0:
+        ltab_sel, n_live = pack_lights(
+            lights, settings.max_dir_lights + settings.max_point_lights
+            + settings.max_spot_lights)
+        tlist, tcount, _ = select_tile_lights(
+            ltab_sel, n_live, camera.position, inv_pv, tiles_x, tiles_y, th,
+            twd, width, h_total, y_off, settings.light_tile_budget)
+        tile_lights = (tlist, tcount)
     uni_shin = bank.uniform_shininess()
     shaded = fused_shade(
         rows, s, ts, d, td, lights, camera.position, inv_pv, tiles_x, width,
         h_total, slot_factor_tiles=sft, slot_factor_inv=sfi,
         slot_entity=sent, pixel_origin=(0.0, y_off),
-        albedo_override=albedo_override,
+        albedo_override=albedo_override, tile_lights=tile_lights,
         with_norm=atlas is not None and bank.has_normal_maps(),
         with_diss=atlas is not None and bank.has_dissolve_maps(),
         spec_packed=uni_shin is None,
         shin_const=uni_shin if uni_shin is not None else 64.0)
+
+    if (systems is not None and systems.has_shade_callbacks()
+            and tri_sys is not None):
+        uw = None if draw_ctx is None else draw_ctx.uniform_writes
+        hook = functools.partial(
+            _fused_custom_shading, rows=rows, tri_sys=tri_sys, camera=camera,
+            lights=lights, systems=systems, uniform_writes=uw, bank=bank,
+            atlas=atlas, tiles_x=tiles_x, th=th, twd=twd, width=width,
+            h_total=h_total, y_off=y_off)
+        shaded = hook(shaded, s, d, wn)
+        # the shading functions shade the transparent layer too
+        shaded = hook(shaded, ts, td, twn, out_base=3,
+                      textured=settings.texture_transparent
+                      or (atlas is not None and bank.has_dissolve_maps()))
 
     img = shaded.reshape(8, tiles_y, tiles_x, th, twd).permute(
         1, 3, 2, 4, 0).reshape(tiles_y * th, tiles_x * twd, 8)[

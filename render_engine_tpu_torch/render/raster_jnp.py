@@ -1,8 +1,13 @@
-"""Tile binning for the rasterizer.
+"""Tile binning, and the golden rasterizer and G-buffer resolve.
 
-Port of ``RasterConfig`` and ``_bin_triangles`` from
-``render_engine_tpu/render/raster_jnp.py`` (the module keeps the JAX
-package's name so the two line up; nothing here is jnp). Each valid
+Port of ``render_engine_tpu/render/raster_jnp.py`` (the module keeps the
+JAX package's name so the two line up; nothing here is jnp):
+``RasterConfig``, ``_bin_triangles``, and the golden path's
+``rasterize_depth_winner``, ``resolve_gbuffer`` and ``render_gbuffer``,
+plain tensor code in image layout that the tiled kernels are held to
+(``RenderSettings(backend="jnp")`` renders through it).
+
+Binning: each valid
 triangle's screen bbox expands into (tile, triangle) pairs, or, when it
 covers more than ``max_tiles_per_tri`` tiles, into the global list tested by
 every tile. One stable sort on ``((tile * 2 + class) << 8) | depth_bucket``
@@ -20,7 +25,12 @@ import dataclasses
 
 import torch
 
-from render_engine_tpu_torch.render.geometry import TriangleBatch
+from render_engine_tpu_torch.render.gbuffer import (MATERIAL_BACKGROUND,
+                                                    GBuffer)
+from render_engine_tpu_torch.render.geometry import (TriangleBatch,
+                                                     perturb_normal,
+                                                     triangle_tangents)
+from render_engine_tpu_torch.render.textures import sample_atlas
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,3 +164,164 @@ def _bin_triangles(batch: TriangleBatch, cfg: RasterConfig, tiles_x: int,
     if classed:
         return tile_cand, global_list, valid, trans_cand, cand_dropped
     return tile_cand, global_list, valid, cand_dropped
+
+
+def rasterize_depth_winner(batch: TriangleBatch, height: int, width: int,
+                           cfg: RasterConfig = RasterConfig(), tri_mask=None,
+                           chunk: int = 8):
+    """Golden raster: (depth (H, W) NDC, winner (H, W) int32 triangle id or
+    -1). ``tri_mask`` restricts which triangles draw (the opaque and the
+    transparent pass share one batch). Every tile marches its window and
+    the global list ``chunk`` candidates at a time; the nearest depth wins
+    and the first candidate seen wins a tie, as in K1. The edge functions
+    and the depth sum are K1's fused forms (``raster_pallas._edge_test``),
+    so both agree on edges and ties."""
+    from render_engine_tpu_torch.render.raster_pallas import (_edge_test,
+                                                              _fma)
+
+    th, tw = cfg.tile_h, cfg.tile_w
+    tiles_x, tiles_y = -(-width // tw), -(-height // th)
+    nt = tiles_x * tiles_y
+    dev = batch.xy.device
+    if tri_mask is not None:
+        batch = dataclasses.replace(batch, valid=batch.valid & tri_mask)
+    tile_cand, global_list, _, _ = _bin_triangles(batch, cfg, tiles_x,
+                                                  tiles_y)
+    cand = torch.cat([tile_cand,
+                      global_list[None].expand(nt, cfg.global_budget)], dim=1)
+    k = cand.shape[1]
+    n_chunks = -(-k // chunk)
+    if n_chunks * chunk > k:
+        cand = torch.cat([cand, cand.new_full((nt, n_chunks * chunk - k),
+                                              -1)], dim=1)
+    tids = torch.arange(nt, device=dev)
+    oy = (torch.div(tids, tiles_x, rounding_mode="floor") * th).to(
+        torch.float32)
+    ox = ((tids % tiles_x) * tw).to(torch.float32)
+    py = (oy[:, None, None, None] + torch.arange(
+        th, dtype=torch.float32, device=dev)[None, None, :, None]) + 0.5
+    px = (ox[:, None, None, None] + torch.arange(
+        tw, dtype=torch.float32, device=dev)[None, None, None, :]) + 0.5
+    x, y, z = batch.xy[..., 0], batch.xy[..., 1], batch.z
+    inf = float("inf")
+    best_d = torch.full((nt, th, tw), inf, device=dev)
+    best_t = torch.full((nt, th, tw), -1, dtype=torch.int32, device=dev)
+    order = torch.arange(chunk, device=dev)[None, :, None, None]
+    for i in range(n_chunks):
+        c = cand[:, i * chunk:(i + 1) * chunk]  # (NT, C)
+        cs = c.clamp(0, batch.budget - 1).long()
+        v = lambda a, j: a[cs][..., j, None, None]  # noqa: E731
+        l0, l1, l2, area, inside = _edge_test(
+            v(x, 0), v(y, 0), v(x, 1), v(y, 1), v(x, 2), v(y, 2), px, py)
+        inside = inside & (c >= 0)[..., None, None]
+        inv_area = 1.0 / torch.where(area.abs() > 1e-9, area,
+                                     torch.ones_like(area))
+        d = _fma(l2, v(z, 2), _fma(l0, v(z, 0), l1 * v(z, 1))) * inv_area
+        inside = inside & (d >= -1.0) & (d <= 1.0)
+        d = torch.where(inside, d, inf)
+        dmin = d.amin(dim=1)
+        first = torch.where(d == dmin[:, None], order, chunk).amin(dim=1)
+        tmin = torch.gather(c, 1, first.clamp(max=chunk - 1).reshape(
+            nt, th * tw)).reshape(nt, th, tw)
+        closer = dmin < best_d
+        best_d = torch.where(closer, dmin, best_d)
+        best_t = torch.where(closer, tmin, best_t)
+
+    def untile(a):
+        a = a.reshape(tiles_y, tiles_x, th, tw).permute(0, 2, 1, 3)
+        return a.reshape(tiles_y * th, tiles_x * tw)[:height, :width]
+
+    depth, winner = untile(best_d), untile(best_t)
+    return torch.where(winner >= 0, depth, torch.ones_like(depth)), winner
+
+
+def resolve_gbuffer(batch: TriangleBatch, bank, depth, winner, atlas=None,
+                    with_specular: bool = False, with_emissive: bool = False,
+                    with_dissolve: bool = False):
+    """Per-pixel attribute interpolation for the winning triangles: world
+    position, normal, albedo (textured with an atlas), material id.
+
+    Returns the ``GBuffer``; with flags (and an atlas) a tuple that appends,
+    in this order, the specular-strength image (``with_specular`` or
+    ``with_emissive``), the emissive-map multiplier (``with_emissive``) and
+    the dissolve-map alpha multiplier (``with_dissolve``, last)."""
+    h, w = depth.shape
+    dev = depth.device
+    tri = winner.clamp(0, batch.budget - 1).long()
+    covered = winner >= 0
+    vx = batch.xy[tri][..., 0]  # (H, W, 3)
+    vy = batch.xy[tri][..., 1]
+    px = torch.arange(w, dtype=torch.float32, device=dev)[None, :] + 0.5
+    py = torch.arange(h, dtype=torch.float32, device=dev)[:, None] + 0.5
+
+    def e(a, b):
+        return ((vx[..., b] - vx[..., a]) * (py - vy[..., a])
+                - (vy[..., b] - vy[..., a]) * (px - vx[..., a]))
+
+    l0, l1, l2 = e(1, 2), e(2, 0), e(0, 1)
+    area = l0 + l1 + l2
+    inv_area = 1.0 / torch.where(area.abs() > 1e-12, area,
+                                 torch.ones_like(area))
+    bary = torch.stack([l0, l1, l2], dim=-1) * inv_area[..., None]
+    wi = bary * batch.inv_w[tri]
+    denom = wi.sum(dim=-1, keepdim=True)
+    pl = wi / torch.where(denom.abs() > 1e-12, denom, torch.ones_like(denom))
+
+    pos = (batch.world_pos[tri] * pl[..., None]).sum(dim=-2)
+    nrm = (batch.normal[tri] * pl[..., None]).sum(dim=-2)
+    nlen = torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
+    nrm = nrm / torch.where(nlen > 1e-12, nlen, torch.ones_like(nlen))
+    mat = batch.material[tri]
+    mat_safe = mat.clamp(0, bank.mat_albedo.shape[0] - 1).long()
+    albedo = bank.mat_albedo[mat_safe]
+    spec_img = emis_mul = uv = None
+    if atlas is not None:
+        uv = (batch.uv[tri] * pl[..., None]).sum(dim=-2)  # (H, W, 2)
+
+        def mapped(layer_ids, default=1.0):
+            # a map's red channel where the material carries one
+            layer = layer_ids[mat_safe]
+            smp = sample_atlas(atlas, layer, uv)[..., 0]
+            return torch.where(layer >= 0, smp,
+                               torch.full_like(smp, default))
+
+        layer = bank.mat_texture[mat_safe]
+        tex = sample_atlas(atlas, layer, uv)
+        albedo = torch.where((layer >= 0)[..., None], tex, albedo)
+        if with_specular:
+            spec_img = bank.mat_specular_eff[mat_safe] * mapped(
+                bank.mat_texture_spec)
+        if with_emissive:
+            emis_mul = mapped(bank.mat_texture_emis)
+        if bank.has_normal_maps():
+            nlayer = bank.mat_texture_norm[mat_safe]
+            nsamp = sample_atlas(atlas, nlayer, uv)
+            tan, handed = triangle_tangents(batch)
+            pert = perturb_normal(nrm, tan[tri], handed[tri], nsamp)
+            nrm = torch.where((nlayer >= 0)[..., None], pert, nrm)
+
+    cm = covered[..., None]
+    zero3 = torch.zeros_like(pos)
+    gbuf = GBuffer(
+        depth=depth, position=torch.where(cm, pos, zero3),
+        normal=torch.where(cm, nrm, zero3),
+        albedo=torch.where(cm, albedo, zero3),
+        material=torch.where(covered, mat,
+                             torch.full_like(mat, MATERIAL_BACKGROUND)),
+        tri_id=winner)
+    out = [gbuf]
+    if with_specular or with_emissive:
+        out.append(spec_img)
+    if with_emissive:
+        out.append(emis_mul)
+    if with_dissolve:
+        out.append(mapped(bank.mat_texture_diss) if atlas is not None
+                   else torch.ones_like(depth))
+    return gbuf if len(out) == 1 else tuple(out)
+
+
+def render_gbuffer(batch: TriangleBatch, bank, height: int, width: int,
+                   cfg: RasterConfig = RasterConfig(), tri_mask=None,
+                   atlas=None, rasterizer=rasterize_depth_winner) -> GBuffer:
+    depth, winner = rasterizer(batch, height, width, cfg, tri_mask)
+    return resolve_gbuffer(batch, bank, depth, winner, atlas=atlas)

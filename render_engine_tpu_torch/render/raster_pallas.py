@@ -27,6 +27,8 @@ import dataclasses
 import torch
 
 from render_engine_tpu_torch import kernels
+from render_engine_tpu_torch.render.gbuffer import (MATERIAL_BACKGROUND,
+                                                    GBuffer)
 from render_engine_tpu_torch.render.geometry import (TriangleBatch,
                                                      triangle_tangents)
 from render_engine_tpu_torch.render.raster_jnp import (RasterConfig,
@@ -432,8 +434,9 @@ def resolve_attributes_reference(slot_tiled, attrs_rows):
 
 
 def resolve_attributes_pallas(slot_tiled, attrs_rows, cfg=None):
-    """K2: (A, TB, th, tw) winner attributes. CPU tensors run the plain
-    version; CUDA tensors launch csrc/resolve.cu."""
+    """K2: (A, TB, th, tw) winner attributes, zeros where a pixel is empty.
+    CPU tensors run the plain version; CUDA tensors launch
+    csrc/resolve.cu."""
     if slot_tiled.device.type == "cpu":
         return resolve_attributes_reference(slot_tiled, attrs_rows)
     tb, th, tw = slot_tiled.shape
@@ -446,3 +449,71 @@ def resolve_attributes_pallas(slot_tiled, attrs_rows, cfg=None):
                    kernels.ptr(attrs_rows), kernels.ptr(out), tb, th * tw, k,
                    a, kernels.stream_ptr(dev))
     return out
+
+
+def _gbuffer_from_channels(ch, depth, winner, height, width, inv_proj_view,
+                           px=None, py=None, ndc_py=None):
+    """The G-buffer from K2's channel images ``ch`` (A, H, W): elementwise
+    interpolation, no gathers. World positions unproject ``depth`` through
+    ``inv_proj_view`` (4, 4). Returns ``(GBuffer, extras)``; extras holds
+    the per-pixel ``uv`` (and ``tangent`` / ``tangent_w`` for 64-channel
+    rows), which custom shading samples the atlas with.
+
+    ``px`` / ``py`` replace the pixel-center coordinates (the tiled layout
+    passes its own; ``height`` / ``width`` are then the whole image's, for
+    the NDC mapping). ``ndc_py`` replaces the y of the unprojection only: a
+    band of image rows rasters with band-local triangle y, which the
+    barycentrics need, while the unprojection needs the global row."""
+    dev = depth.device
+    covered = winner >= 0
+    if px is None:
+        px = torch.arange(width, dtype=torch.float32, device=dev)[None, :] \
+            + 0.5
+        py = torch.arange(height, dtype=torch.float32, device=dev)[:, None] \
+            + 0.5
+    x0, y0, x1, y1, x2, y2 = ch[0], ch[1], ch[2], ch[3], ch[4], ch[5]
+    l0 = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)
+    l1 = (x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)
+    l2 = (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)
+    area = l0 + l1 + l2
+    one = torch.ones_like(area)
+    inv_area = 1.0 / torch.where(area.abs() > 1e-12, area, one)
+    w0 = l0 * inv_area * ch[25]
+    w1 = l1 * inv_area * ch[26]
+    w2 = l2 * inv_area * ch[27]
+    denom = w0 + w1 + w2
+    inv_d = 1.0 / torch.where(denom.abs() > 1e-12, denom, one)
+    p0, p1, p2 = w0 * inv_d, w1 * inv_d, w2 * inv_d
+
+    ndc_x = (px / float(width) * 2.0 - 1.0).expand(depth.shape)
+    ndc_y = (1.0 - (py if ndc_py is None else ndc_py) / float(height)
+             * 2.0).expand(depth.shape)
+    m = inv_proj_view
+    wp = [m[r, 0] * ndc_x + m[r, 1] * ndc_y + m[r, 2] * depth + m[r, 3]
+          for r in range(4)]
+    inv_w = 1.0 / torch.where(wp[3].abs() > 1e-12, wp[3], one)
+    pos = torch.stack([wp[0] * inv_w, wp[1] * inv_w, wp[2] * inv_w], dim=-1)
+
+    nrm = torch.stack([p0 * ch[10 + i] + p1 * ch[13 + i] + p2 * ch[16 + i]
+                       for i in range(3)], dim=-1)
+    nlen = torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
+    nrm = nrm / torch.where(nlen > 1e-12, nlen, torch.ones_like(nlen))
+    uv = torch.stack([p0 * ch[19 + i] + p1 * ch[21 + i] + p2 * ch[23 + i]
+                      for i in range(2)], dim=-1)
+    mat = ch[28].to(torch.int32)
+    albedo = torch.stack([ch[29], ch[30], ch[31]], dim=-1)
+
+    cm = covered[..., None]
+    zero3 = torch.zeros_like(pos)
+    gbuf = GBuffer(
+        depth=depth, position=torch.where(cm, pos, zero3),
+        normal=torch.where(cm, nrm, zero3),
+        albedo=torch.where(cm, albedo, zero3),
+        material=torch.where(covered, mat,
+                             torch.full_like(mat, MATERIAL_BACKGROUND)),
+        tri_id=winner)
+    extras = {"uv": uv}
+    if ch.shape[0] >= N_ATTR_NORM:
+        extras["tangent"] = torch.stack([ch[55], ch[56], ch[57]], dim=-1)
+        extras["tangent_w"] = ch[58]
+    return gbuf, extras

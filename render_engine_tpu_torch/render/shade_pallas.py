@@ -25,6 +25,9 @@ Packed light-table row (N_LCOL f32 columns): 0 kind (0 dir, 1 point,
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from render_engine_tpu_torch import kernels
@@ -95,6 +98,93 @@ def pack_lights(lights: LightArrays, budget: int, slot_entity=None):
         table = torch.cat([table, torch.zeros((budget - total, N_LCOL),
                                               device=dev)])
     return table.contiguous(), valid.sum(dtype=torch.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _tile_corner_ndc(tiles_x, tiles_y, tile_h, tile_w, width, h_total, y_off,
+                     device):
+    """(tiles_y + 1, tiles_x + 1, 4) camera-NDC points [x, y, 0.5, 1] of the
+    tile boundary grid, computed on the host: numpy rounds each division
+    like the JAX package (CUDA multiplies by a host scalar's reciprocal
+    instead)."""
+    f32 = np.float32
+    cx = np.arange(tiles_x + 1, dtype=f32) * f32(tile_w)
+    cy = np.arange(tiles_y + 1, dtype=f32) * f32(tile_h) + f32(y_off)
+    ndc_x = cx / f32(width) * f32(2.0) - f32(1.0)
+    ndc_y = f32(1.0) - cy / f32(h_total) * f32(2.0)
+    shape = (tiles_y + 1, tiles_x + 1)
+    return torch.tensor(np.stack(
+        [np.broadcast_to(ndc_x[None, :], shape),
+         np.broadcast_to(ndc_y[:, None], shape),
+         np.full(shape, 0.5, f32), np.ones(shape, f32)], axis=-1),
+        device=device)
+
+
+def select_tile_lights(ltab, n_live, camera_position, inv_pv, tiles_x,
+                       tiles_y, tile_h, tile_w, width, h_total, y_off,
+                       budget: int):
+    """Per-tile light lists: each tile culls the packed light table against
+    its view pyramid (four side planes and the behind-camera plane, with
+    each light's influence sphere; no depth dependence, so the drop
+    counters reproduce the exact counts). K3's light loop then runs over
+    ``tlist[t, :tcount[t]]`` instead of every live light.
+
+    A culled light contributes exactly 0 in the full loop (its radius
+    cutoff zeroes the attenuation) and ``tlist`` keeps ascending table
+    order, so shading through the lists is bit-identical to the full loop
+    as long as no tile overflows ``budget``. Directional lights and lights
+    with radius <= 0 (unbounded; spot rows pack radius 0) are in every
+    list. Returns (tlist int32 (NT, min(budget, L)), tcount int32 (NT,),
+    dropped int32 scalar)."""
+    nt = tiles_x * tiles_y
+    ll = ltab.shape[0]
+    dev = ltab.device
+    cam = torch.as_tensor(camera_position, dtype=torch.float32,
+                          device=dev).reshape(3)
+
+    # world rays through the tile boundary grid, from the camera
+    ndc = _tile_corner_ndc(tiles_x, tiles_y, tile_h, tile_w, width, h_total,
+                           float(y_off), dev)
+    wp = ndc @ inv_pv.T
+    w = wp[..., 3:4]
+    rays = wp[..., :3] / torch.where(w.abs() > 1e-12, w,
+                                     torch.ones_like(w)) - cam
+    tl, tr = rays[:-1, :-1], rays[:-1, 1:]  # (Ty, Tx, 3)
+    bl, br = rays[1:, :-1], rays[1:, 1:]
+    cross = functools.partial(torch.linalg.cross, dim=-1)
+    planes = torch.stack([cross(tl, bl), cross(br, tr), cross(tr, tl),
+                          cross(bl, br)], dim=2)  # left right top bottom
+    center = tl + tr + bl + br  # un-normalized center ray
+    # every normal points inward (positive toward the tile's own rays)
+    sign = torch.sign((planes * center[:, :, None, :]).sum(dim=-1))
+    sign = torch.where(sign == 0.0, torch.ones_like(sign), sign)
+    planes = planes * sign[..., None]
+    planes = planes / torch.linalg.vector_norm(
+        planes, dim=-1, keepdim=True).clamp(min=1e-12)
+    fwd = center / torch.linalg.vector_norm(
+        center, dim=-1, keepdim=True).clamp(min=1e-12)
+    planes = torch.cat([planes, fwd[:, :, None, :]], dim=2).reshape(nt, 5, 3)
+
+    kind = ltab[:, 0]
+    lpos = ltab[:, 1:4] - cam[None, :]  # (L, 3) offsets from the camera
+    radius = ltab[:, 20]
+    live = torch.arange(ll, device=dev) < n_live
+    always = live & ((kind < 0.5) | (radius <= 0.0))
+    # the plane distances, term by term in float32 (no library product:
+    # its summation order and a TF32 mode would move boundary lights)
+    p, q = planes[:, :, None, :], lpos[None, None, :, :]
+    d = (p[..., 0] * q[..., 0] + p[..., 1] * q[..., 1]) \
+        + p[..., 2] * q[..., 2]  # (NT, 5, L)
+    in_pyramid = (d >= -radius[None, None, :]).all(dim=1)
+    mask = (always[None, :] | in_pyramid) & live[None, :]
+
+    idx = torch.arange(ll, dtype=torch.int32, device=dev)
+    key = torch.where(mask, idx[None, :], ll)
+    tlist = torch.sort(key, dim=1).values[:, :budget]
+    tlist = torch.where(tlist < ll, tlist, 0).to(torch.int32)
+    counts = mask.sum(dim=1, dtype=torch.int32)
+    dropped = (counts - budget).clamp(min=0).sum(dtype=torch.int32)
+    return tlist.contiguous(), counts.clamp(max=budget), dropped
 
 
 def _interp(ch, px, py, spec_packed=False):
@@ -329,6 +419,15 @@ def fused_shade(rows, s_o, s_t, d_o, d_t, lights: LightArrays,
                        **opts)
 
 
+def blocks_per_sm(n_lights: int) -> int:
+    """Blocks of K3 one SM holds at once with ``n_lights`` table rows in
+    shared memory (the CUDA occupancy calculator, on the card)."""
+    blocks = kernels.library().fused_shade_blocks_per_sm(int(n_lights))
+    if blocks < 0:
+        raise RuntimeError("fused_shade_blocks_per_sm: CUDA error")
+    return blocks
+
+
 def shade_tiles(rows, s_o, s_t, d_o, d_t, ltab, lcount, cam, ipv, org, *,
                 tiles_x, width, height, sf, sfi, ovr, ovr_chans, with_norm,
                 with_diss, tlist, tcount, spec_packed, shin_const):
@@ -384,4 +483,6 @@ def shade_tiles(rows, s_o, s_t, d_o, d_t, ltab, lcount, cam, ipv, org, *,
         nt, k, a, tiles_x, th, tw, n_slots, tb, lb, nl, width, height,
         ovr_chans, int(with_norm), int(with_diss), int(spec_packed),
         shin_const, DIFFUSE_FLOOR, kernels.stream_ptr(dev))
+    if tlist is not None:
+        kernels.LAUNCHES["fused_shade_tile_lists"] += 1
     return out

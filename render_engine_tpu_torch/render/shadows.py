@@ -371,3 +371,47 @@ def pcf_factor_from_clip(shadow: ShadowState, slot, cx, cy, cz,
               & (cw > 0.0))
     maps = shadow.maps if slot is None else shadow.maps[slot]
     return _pcf(maps, shadow.resolution, nx, ny, z, inside)
+
+
+def slot_factors(shadow: ShadowState, world_pos) -> torch.Tensor:
+    """(S, *spatial) PCF factors of every slot at world positions
+    (..., h, w, 3); slots without an owning light are all lit. With
+    ``shadow.pcf_scale`` > 1 the factors are computed at every k-th pixel
+    and repeated in k x k blocks."""
+    k = shadow.pcf_scale
+    wp = world_pos[..., ::k, ::k, :] if k > 1 else world_pos
+    f = torch.stack([pcf_factor(shadow, s, wp)[..., 0]
+                     for s in range(shadow.slots)])
+    active = (shadow.slot_entity >= 0).reshape((-1,) + (1,) * (f.dim() - 1))
+    f = torch.where(active, f, torch.ones_like(f))
+    if k > 1:
+        f = f.repeat_interleave(k, dim=-2).repeat_interleave(k, dim=-1)
+        f = f[..., :world_pos.shape[-3], :world_pos.shape[-2]]
+    return f
+
+
+def make_shadow_factor(shadow: ShadowState, world, lights_entity_map):
+    """The ``shadow_factor`` callback of ``lighting.shade``:
+    ``factor(kind, i, world_pos) -> (..., 1)``, the product of the factors
+    of every slot that light i of ``kind`` owns (a cube-mapped light owns
+    several; faces whose frustum misses a pixel give 1).
+    ``lights_entity_map``: kind -> (N,) entity ids as uploaded into the
+    ``LightArrays``. The slot factors are computed once per ``world_pos``
+    tensor and shared by the lights."""
+    cache: dict = {}
+
+    def factor(kind: str, i: int, world_pos):
+        ents = lights_entity_map.get(kind)
+        if ents is None:
+            return 1.0
+        key = id(world_pos)
+        if key not in cache:
+            cache[key] = (world_pos, slot_factors(shadow, world_pos))
+        slots = cache[key][1]
+        ent = ents[i]
+        hit = (shadow.slot_entity == ent) & (ent >= 0)  # (S,)
+        hit = hit.reshape((-1,) + (1,) * (slots.dim() - 1))
+        return torch.where(hit, slots, torch.ones_like(slots)).prod(
+            dim=0)[..., None]
+
+    return factor

@@ -3,7 +3,8 @@
 Port of ``render_engine_tpu/render/textures.py``. The builder is the same
 host-side numpy shelf packer (copied); ``finalize(device)`` returns a
 ``TextureAtlas`` of tensors. ``sample_atlas_rows`` samples through the
-precomputed 2x2-footprint rows, one row gather per pixel.
+precomputed 2x2-footprint rows, one row gather per pixel; ``sample_atlas``
+is the golden four-tap sampler by texture id, with the same values.
 """
 
 from __future__ import annotations
@@ -147,6 +148,30 @@ def atlas_from_layers(stack: np.ndarray, tex_layer, uv_rect, device
                         tex_layer=t(tex_layer, np.int32),
                         uv_rect=t(uv_rect, np.float32),
                         bilin_rows=t(rows, np.float32))
+
+
+def sample_atlas(atlas: TextureAtlas, texture: torch.Tensor,
+                 uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample by four taps. ``texture``: (...,) int texture ids
+    (clipped); ``uv``: (..., 2) model-space coordinates (wrapped), mapped
+    into the texture's packed rect. Returns (..., 3)."""
+    s = atlas.size
+    t = texture.clamp(0, atlas.num_textures - 1).long()
+    lay = atlas.tex_layer[t].long()
+    rect = atlas.uv_rect[t]
+    u = rect[..., 2] + torch.remainder(uv[..., 0], 1.0) * rect[..., 0]
+    v = rect[..., 3] + (1.0 - torch.remainder(uv[..., 1], 1.0)) * rect[..., 1]
+    # bound the floats before the int cast
+    u0 = torch.floor(u).clamp(0.0, s - 1.0).long()
+    v0 = torch.floor(v).clamp(0.0, s - 1.0).long()
+    u1 = (u0 + 1).clamp(max=s - 1)
+    v1 = (v0 + 1).clamp(max=s - 1)
+    fu = (u - u0)[..., None]
+    fv = (v - v0)[..., None]
+    return (atlas.layers[lay, v0, u0] * (1 - fu) * (1 - fv)
+            + atlas.layers[lay, v0, u1] * fu * (1 - fv)
+            + atlas.layers[lay, v1, u0] * (1 - fu) * fv
+            + atlas.layers[lay, v1, u1] * fu * fv)
 
 
 def sample_atlas_rows(atlas: TextureAtlas, layer_f: torch.Tensor,

@@ -9,10 +9,8 @@ program does), ``render`` / ``render_only``, ``reset``, the burst loops
 ``flush_history`` (runtime/history.py; replayed by runtime/replay.py),
 ``drop_stats`` with ``render_drop_stats``, and ``fps_stats``. PyTorch runs
 eagerly, so there is no compiled program to build: ``frame`` calls the
-step, ``render_shadow_map`` and ``render_frame`` directly.
-
-Not ported yet: the ``light_tile_overflow`` counter (tile light lists are
-not ported).
+step, ``render_shadow_map`` and ``render_frame`` directly, and hands the
+frame's inputs to the render systems' draw callbacks on every route.
 """
 
 from __future__ import annotations
@@ -31,7 +29,9 @@ from render_engine_tpu_torch.logic.types import NUM_KEYS, InputState
 from render_engine_tpu_torch.math import transforms as T
 from render_engine_tpu_torch.math.camera import Camera, CameraBuilder
 from render_engine_tpu_torch.models.bank import ModelBank, ModelBankBuilder
+from render_engine_tpu_torch.render import lighting as LG
 from render_engine_tpu_torch.render import raster_pallas as RP
+from render_engine_tpu_torch.render import shade_pallas as SP
 from render_engine_tpu_torch.render import shadows as SH
 from render_engine_tpu_torch.render.frame import (render_frame,
                                                   shadow_tile_overflow)
@@ -186,9 +186,12 @@ class Engine:
     # -- frame loop ----------------------------------------------------------
     def step(self, inputs: InputState, dt: float):
         """Advance the world one tick (no render)."""
+        self._step_device(inputs.to_device(self.device), dt)
+
+    def _step_device(self, inputs: InputState, dt: float):
         self.world, self.camera, stats = self._step_fn(
-            self.world, self.camera, inputs.to_device(self.device), dt,
-            self.bank.aabb_min, self.bank.aabb_max)
+            self.world, self.camera, inputs, dt, self.bank.aabb_min,
+            self.bank.aabb_max)
         self._last_drops = pack_drop_stats(stats)
 
     def update_shadows(self):
@@ -200,16 +203,18 @@ class Engine:
             max_tris=cfg.shadow_max_tris, interval=cfg.shadow_update_interval,
             lov_bias=cfg.shadow_lov_bias, caster_mask=cfg.shadow_caster_mask)
 
-    def render(self, camera=None) -> torch.Tensor:
+    def render(self, camera=None, inputs: InputState | None = None
+               ) -> torch.Tensor:
         """Render the current state, through ``camera`` (the engine's by
         default), with the current shadow maps, which this does not update:
-        (H, W, 3) float32 linear color."""
+        (H, W, 3) float32 linear color. ``inputs``: the frame's inputs on
+        the engine's device, for the render systems' draw callbacks."""
         return render_frame(self.world,
                             self.camera if camera is None else camera,
                             self.bank, self.config.render,
                             cubemap=self.cubemap, atlas=self.atlas,
                             shadow_state=self.shadow_state,
-                            systems=self.compiled_systems)
+                            systems=self.compiled_systems, inputs=inputs)
 
     # the JAX package's name (detached-camera replay views)
     render_only = render
@@ -243,10 +248,13 @@ class Engine:
         inputs = inputs.with_prev(self._prev_keys)
         self._prev_keys = np.asarray(inputs.keys, bool)
         t0 = time.perf_counter()
-        self.step(inputs, dt)
+        # one transfer: the step and the draw callbacks read the same
+        # tensors, live and in a replay
+        inputs = inputs.to_device(self.device)
+        self._step_device(inputs, dt)
         if self.shadow_state is not None and (render or fused):
             self.update_shadows()
-        img = self.render() if render else None
+        img = self.render(inputs=inputs) if render else None
         self.frame_index += 1
         self._frame_times.append(time.perf_counter() - t0)
         return img
@@ -311,12 +319,14 @@ class Engine:
         return out
 
     def render_drop_stats(self) -> dict:
-        """Triangle-budget, tile-candidate, texture-tile and shadow
-        overflow of the current state, by re-running the frame's geometry
-        and binning (and, with shadows, the next update's shadow batch and
-        binning and the main raster for the per-slot PCF budget). A
-        diagnostic off the frame's path: it launches K1 once with shadows
-        and reads the counters back once."""
+        """Triangle-budget, tile-candidate, texture-tile, light-list and
+        shadow overflow of the current state, by re-running the frame's
+        geometry and binning (and, with shadows, the next update's shadow
+        batch and binning and the main raster for the per-slot PCF
+        budget). The texture-tile and light-list budgets exist on the fused
+        tiled path only, so ``backend="jnp"`` reports neither. A diagnostic
+        off the frame's path: it launches K1 once with shadows and reads
+        the counters back once."""
         if self.bank is None:
             return {}
         s = self.config.render
@@ -333,7 +343,8 @@ class Engine:
         out = {"triangle_budget_dropped":
                (batch.total_requested - s.max_tris).clamp(min=0),
                "tile_candidate_dropped": cand_dropped}
-        if self.atlas is not None:
+        tiled_path = s.backend != "jnp"
+        if self.atlas is not None and tiled_path:
             # textured-candidate tiles beyond texture_tile_budget render
             # untextured (a candidate-level superset of textured winners)
             ttb = max(1, int(round(tiles_x * tiles_y
@@ -345,6 +356,19 @@ class Engine:
                 0, batch.budget - 1).long()]).any(dim=1)
             out["texture_tile_overflow"] = (
                 tex_cand.sum(dtype=torch.int32) - ttb).clamp(min=0)
+        if s.light_tile_budget > 0 and tiled_path:
+            # the selection does not depend on depth, so this reproduces
+            # the render's exact counts
+            lights = LG.extract_lights(
+                world, max_dir=s.max_dir_lights, max_point=s.max_point_lights,
+                max_spot=s.max_spot_lights)
+            ltab, n_live = SP.pack_lights(
+                lights, s.max_dir_lights + s.max_point_lights
+                + s.max_spot_lights)
+            out["light_tile_overflow"] = SP.select_tile_lights(
+                ltab, n_live, camera.position, T.inv44(camera.proj_view()),
+                tiles_x, tiles_y, cfg.tile_h, cfg.tile_w, s.width, s.height,
+                0.0, s.light_tile_budget)[2]
         sh = self.shadow_state
         if sh is not None:
             c = self.config

@@ -43,7 +43,7 @@ H, WIDTH = 32, 128
 RASTER = dict(tile_budget=32, max_tiles_per_tri=8, global_budget=16)
 
 
-def build(pk, textured):
+def build(pk, textured, capacity=16):
     """The test_frame_tiled scene (cube, emissive star with a point light,
     glass pane) in package ``pk``; ``textured`` gives the cubes a
     checkerboard."""
@@ -63,7 +63,7 @@ def build(pk, textured):
     star = bb.add_model("star", P.uv_sphere(0.7, 6, 8), material=glow)
     pane = bb.add_model("pane", P.quad(2.0), material=glass)
     bank = bb.finalize()
-    w = W.create_world(W.WorldConfig(capacity=16, world_length=128.0,
+    w = W.create_world(W.WorldConfig(capacity=capacity, world_length=128.0,
                                      section_length=16.0))
     w, _ = W.spawn_host(
         w, 4,

@@ -366,3 +366,48 @@ def test_capacity_churn_replays_bitwise(engines):
     for i in range(eng.history.num_frames):
         player.step(render=False)
         assert world_hash(eng2.world) == hashes[i], f"frame {i} diverged"
+
+
+def _gate_default_system_on_w(eng):
+    """Give the demo's lit system a draw callback that draws its models
+    only while W is held (always, for a view without inputs)."""
+    lit, *rest = eng.compiled_systems.src
+
+    def draw(dp):
+        inp = dp.get_input_history()
+        dp.draw_models(*lit.model_ids,
+                       when=True if inp is None else inp.keys[KEY_W])
+
+    eng.set_render_systems((dataclasses.replace(lit, draw=draw), *rest))
+    eng.finalize_scene()
+
+
+def test_input_gated_draw_callback_replays_image_for_image(engines,
+                                                           tmp_path):
+    """A draw callback that reads the frame's inputs gets the recorded
+    inputs in a replay: every image equals the live one."""
+    eng = engines(slot="draw-live")
+    _gate_default_system_on_w(eng)
+    assert eng.compiled_systems.has_draw_callbacks()
+    eng.config.history_dir = str(tmp_path)
+    held = (True, False, True, True, False)
+    live = []
+    for i, w_held in enumerate(held):
+        inp = InputState.idle(i)
+        live.append(eng.frame(inp.with_keys(KEY_W) if w_held else inp, DT))
+    eng.flush_history()
+    # the last frame was drawn with W released: the lit system is missing
+    # from it, and a view without inputs draws it
+    everything = eng.render_only()
+    gated = (everything - live[-1]).abs().amax(dim=-1) > 0.02
+    assert int(gated.sum()) >= 3  # the few pixels of the small asteroids
+
+    eng2 = engines(slot="draw-replay")
+    _gate_default_system_on_w(eng2)
+    eng2.config.record_history = False
+    player = Player(eng2, HistoryLog.load(str(tmp_path)))
+    for i, want in enumerate(live):
+        img, _ = player.step(render=True)
+        assert torch.equal(img, want), f"frame {i}"
+    assert world_hash(eng2.world) == world_hash(eng.world)
+    assert torch.equal(eng2.render_only(eng2.camera), everything)
