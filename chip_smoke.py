@@ -65,6 +65,21 @@ Phases (any failure exits non-zero; no phase catches its own):
   9. golden  a 256x144 engine with a cubemap skybox: the golden path
              (backend="jnp") against the fused path on the card, and the
              card against the CPU.
+  10. configs the benchmark configurations of
+             benchmarks/run_benchmarks_torch.py at their full scene size,
+             with frame counts cut (the lights configuration is phase 7's):
+             scene at 800x600 (7 tile columns, the last one 32 pixels wide:
+             K1 in both modes, K2 and K3 on a frame's inputs against their
+             plain versions, and the frame through kernels against plain
+             versions); asteroids (10,000 under a thrusting patrol,
+             collision_large_budget 64: all 13 drop counters 0, a finite
+             image); tick (a 100,000-entity world, capacity 131,072: the
+             entities alive, the step counters, the host's cost of the
+             step's random draws, a rendered frame at max_tris 49152 with
+             K1, K2 and K3 against their plain versions, peak device
+             memory); playback (300 step frames recorded and replayed bit
+             for bit, two steps past the end, 10 recorded 1080p frames).
+             Each prints its JSON line.
 The last three lines are the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 
@@ -111,15 +126,21 @@ REPLAY_DRAW_AT, REPLAY_DRAW_DISTANCE = 6, 1200.0
 REPLAY_BIG_SEED_AT = 2
 RECORD_TURNS, TURN_FRAMES = ("off", "on", "on", "off") * 5, 10
 CAPTURE_FRAME = 3  # frames 0 and 3 render maps at interval 3: both slots
-# phase 7: the JAX package's many-lights configuration, at its full size
-LIGHTS = dict(width=1280, height=720, capacity=1024, num_asteroids=200,
-              max_tris=24576, raster_tile_budget=192, trans_tile_budget=128)
+# phase 7: the many-lights configuration at its full size
+# (demo.space_scene.build_many_lights_engine)
+LIGHTS = dict(width=1280, height=720)
 N_POINT_LIGHTS, LIGHT_TILE_BUDGET = 256, 96
 BUDGET_TURNS = (0, LIGHT_TILE_BUDGET, LIGHT_TILE_BUDGET, 0) * 3
 SHADE_TURNS = ("without", "with", "with", "without") * 3
 TCOUNT_BINS = (0, 1, 9, 17, 33, 49, 65, 81, 97)
 GOLDEN = dict(width=256, height=144, capacity=256, num_asteroids=64,
               max_tris=8192)
+# phase 10: frame counts of the benchmark configurations (their scene
+# sizes are the benchmark script's own, at scale 1)
+CONFIG_FRAMES = dict(scene=10, asteroids=10, tick=10, tick_burst=10,
+                     playback=300, playback_recorded=10)
+CONFIG_SCALE = 1.0  # the benchmark script's BENCH_SCALE: full size
+SCENE_FIXED_ENTITIES = 6  # beside the asteroids: stars, ship, station, ...
 
 KERNELS = {  # record name -> (launch-count key, source, TPU kernel)
     "tile_raster": ("tile_raster",
@@ -786,6 +807,68 @@ def frame_launches(renders_map, resolve=1, tile_lists=0):
             "fused_shade": 1, "fused_shade_tile_lists": tile_lists}
 
 
+def hold_kernels(eng, label, k3=False):
+    """One more frame of ``eng``, which must render a shadow map, with
+    every kernel call's inputs captured: K1 in both modes and K2 (the
+    frame's first call) against their plain versions at this path's
+    shapes, exact; with ``k3`` also K3 within 1e-5. Returns the frame."""
+    import torch
+
+    from render_engine_tpu_torch.render import raster_pallas as RP
+    from render_engine_tpu_torch.render import shade_pallas as SP
+
+    with Capture(RP, "tile_raster") as k1, \
+            Capture(RP, "resolve_attributes_pallas") as k2, \
+            Capture(SP, "shade_tiles") as k3c:
+        img = eng.frame(None, DT)
+    modes = [kw["two_pass"] for _, kw in k1.calls]
+    if modes != [False, True] or len(k2.calls) != 1 or len(k3c.calls) != 1:
+        raise RuntimeError(f"{label}: K1 calls with two_pass {modes}, "
+                           f"{len(k2.calls)} K2 calls, {len(k3c.calls)} K3 "
+                           "calls")
+    for (a, kw), name in zip(k1.calls, ("K1 one-pass", "K1")):
+        err = check_close(f"{label} {name}", RP.tile_raster(*a, **kw),
+                          RP.tile_raster_reference(*a, **kw), 0.0)
+        log(f"[{label}] {name} on this frame's inputs (data "
+            f"{tuple(a[0].shape)}, tile_budget {kw['tile_budget']}, "
+            f"trans_budget {kw['trans_budget']}): max_abs_err {err:.3g} "
+            "(exact)")
+    a2 = k2.calls[0][0]
+    err = check_close(f"{label} K2", [RP.resolve_attributes_pallas(*a2)],
+                      [RP.resolve_attributes_reference(*a2)], 0.0)
+    log(f"[{label}] K2 on this frame's inputs (slot {tuple(a2[0].shape)}, "
+        f"rows {tuple(a2[1].shape)}): max_abs_err {err:.3g} (exact)")
+    if k3:
+        a3, kw3 = k3c.calls[0]
+        err = check_close(f"{label} K3", [SP.shade_tiles(*a3, **kw3)],
+                          [SP.fused_shade_reference(*a3, **kw3)], 1e-5)
+        covered = int((a3[1] >= 0).sum()) + int((a3[2] >= 0).sum())
+        log(f"[{label}] K3 on this frame's inputs (rows "
+            f"{tuple(a3[0].shape)}, {covered} covered items, slot factors "
+            f"{None if kw3['sf'] is None else tuple(kw3['sf'].shape)}): "
+            f"max_abs_err {err:.3g} (tolerance 1e-05)")
+    torch.cuda.synchronize()
+    return img
+
+
+def frame_through_plain(eng, label, what):
+    """The current state through the kernels and through the plain
+    versions: the images within 1e-5."""
+    import torch
+
+    img_k = eng.render()
+    with Plain():
+        img_p = eng.render()
+    torch.cuda.synchronize()
+    err = float((img_k - img_p).abs().max())
+    log(f"[{label}] kernels vs plain versions, {what}: max abs diff "
+        f"{err:.3g}")
+    if not err <= 1e-5:
+        raise RuntimeError(f"{label}: the frame through the kernels differs "
+                           f"by {err}")
+    return img_k
+
+
 def launch_delta(before):
     from render_engine_tpu_torch import kernels
 
@@ -794,29 +877,19 @@ def launch_delta(before):
 
 def timed_frame(fn):
     """fn() and its ms, synchronized."""
-    import torch
+    from render_engine_tpu_torch.runtime.profiling import timed
 
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
+    return timed(fn)
 
 
 def turn_medians(eng, turns, start, label, what=""):
     """Median ms/frame of TURN_FRAMES rendered frames a turn, each turn
     begun by ``start(which)`` (which resets the engine into that kind);
     per kind the median of its turn medians."""
-    meds = {}
-    for which in turns:
-        start(which)
-        times = [timed_frame(lambda: eng.frame(None, DT))[1]
-                 for _ in range(TURN_FRAMES)]
-        meds.setdefault(which, []).append(statistics.median(times))
-    for which, m in meds.items():
-        log(f"[{label}] {what}{which}: {TURN_FRAMES} frames a turn, turn "
-            f"medians {', '.join(f'{t:.2f}' for t in m)} ms; median "
-            f"{statistics.median(m):.2f} ms/frame")
-    return {k: statistics.median(v) for k, v in meds.items()}
+    from render_engine_tpu_torch.runtime.profiling import turn_medians as tm
+
+    return tm(lambda: eng.frame(None, DT), turns, start, frames=TURN_FRAMES,
+              log=log, label=label, what=what)[0]
 
 
 def record_turns(eng):
@@ -1007,31 +1080,14 @@ def phase_replay(eng):
 
 
 def build_lights_engine():
-    """The many-lights engine: the space scene at 720p with 200 asteroids
-    and 256 seeded point lights, 268 light-table rows, two render
-    systems."""
-    import numpy as np
+    """The many-lights engine at its full size: 720p, 200 asteroids, 256
+    seeded point lights, 268 light-table rows, two render systems."""
+    from render_engine_tpu_torch.demo.space_scene import (
+        build_many_lights_engine)
 
-    from render_engine_tpu_torch.demo.space_scene import build_space_engine
-    from render_engine_tpu_torch.ecs import registry as R
-    from render_engine_tpu_torch.ecs import world as W
-
-    eng = build_space_engine(device="cuda", **LIGHTS)
-    eng.config.record_history = False
-    nl = N_POINT_LIGHTS
-    rng = np.random.default_rng(0)
-    pos = (np.array([1000.0, 1000.0, 900.0])
-           + rng.uniform(-200, 200, (nl, 3))).astype(np.float32)
-    eng.world, _ = W.spawn_host(
-        eng.world, nl, position=pos,
-        sortable=np.full(nl, R.SORTABLE_POINT, np.int32),
-        light_diffuse=rng.uniform(0.2, 1.0, (nl, 3)).astype(np.float32),
-        light_atten=np.full((nl, 2), [0.05, 0.01], np.float32),
-        light_radius=rng.uniform(40.0, 90.0, nl).astype(np.float32))
-    eng.config.render = dataclasses.replace(
-        eng.config.render, max_point_lights=nl, max_spot_lights=8,
-        light_tile_budget=LIGHT_TILE_BUDGET)
-    eng.finalize_scene()
+    eng = build_many_lights_engine(device="cuda", n_lights=N_POINT_LIGHTS,
+                                   light_tile_budget=LIGHT_TILE_BUDGET,
+                                   **LIGHTS)
     if len(eng.compiled_systems.names) != 2:
         raise RuntimeError(f"render systems {eng.compiled_systems.names}")
     return eng
@@ -1091,26 +1147,7 @@ def phase_lights():
     # one more frame, which renders a shadow map: K1 in both modes and K2
     # at this path's shapes (other tile counts and budgets than the
     # headline's) against their plain versions, exact
-    with Capture(RP, "tile_raster") as k1, \
-            Capture(RP, "resolve_attributes_pallas") as k2:
-        eng.frame(None, DT)
-    modes = [kw["two_pass"] for _, kw in k1.calls]
-    if modes != [False, True] or len(k2.calls) != 1:
-        raise RuntimeError(f"lights: K1 calls with two_pass {modes}, "
-                           f"{len(k2.calls)} K2 calls")
-    for (a, kw), name in zip(k1.calls, ("K1 one-pass", "K1")):
-        err = check_close(f"lights {name}", RP.tile_raster(*a, **kw),
-                          RP.tile_raster_reference(*a, **kw), 0.0)
-        log(f"[lights] {name} on this frame's inputs (data "
-            f"{tuple(a[0].shape)}, tile_budget {kw['tile_budget']}, "
-            f"trans_budget {kw['trans_budget']}): max_abs_err {err:.3g} "
-            "(exact)")
-    a2 = k2.calls[0][0]
-    err = check_close("lights K2", [RP.resolve_attributes_pallas(*a2)],
-                      [RP.resolve_attributes_reference(*a2)], 0.0)
-    log(f"[lights] K2 on this frame's inputs (slot {tuple(a2[0].shape)}, "
-        f"rows {tuple(a2[1].shape)}): max_abs_err {err:.3g} (exact)")
-    del k1, k2
+    hold_kernels(eng, "lights")
 
     # the same state through the kernels at budget 96, through the plain
     # versions, and through the kernels at budget 0
@@ -1332,6 +1369,188 @@ def phase_custom(eng):
     return rec, launches, frames
 
 
+def render_launches(label, before, frames):
+    """The launches since ``before``: every kernel of the rendered path
+    must have run. Returns them."""
+    got = launch_delta(before)
+    log(f"[{label}] launches in {frames} rendered frames: {got}")
+    missing = [k for k in MAIN_PATH if got[k] == 0]
+    if missing:
+        raise RuntimeError(f"{label} launched no {missing}")
+    return got
+
+
+def config_scene(RB):
+    """800x600: the last of 7 tile columns is 32 pixels wide."""
+    import torch
+
+    from render_engine_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    before = dict(kernels.LAUNCHES)
+    rec, eng = RB.bench_scene(scale=CONFIG_SCALE,
+                              frames=CONFIG_FRAMES["scene"])
+    render_launches("configs scene", before, WARMUP + CONFIG_FRAMES["scene"])
+    sc = RB._scaler(CONFIG_SCALE)
+    s = eng.config.render
+    size = (sc(600, 96), sc(800, 128))
+    if (s.height, s.width) != size or (
+            CONFIG_SCALE == 1.0 and s.width % s.raster.tile_w == 0):
+        raise RuntimeError(f"scene renders {s.width}x{s.height}")
+    interval = eng.config.shadow_update_interval
+    while eng.shadow_state.tick % interval:
+        eng.frame(None, DT)
+    img = hold_kernels(eng, "configs scene", k3=True)
+    if tuple(img.shape) != (*size, 3) or \
+            not bool(torch.isfinite(img).all()) or float(img.max()) < 0.5:
+        raise RuntimeError("scene: image")
+    tw = s.raster.tile_w
+    frame_through_plain(
+        eng, "configs scene", f"whole {s.width}x{s.height} frame "
+        f"({-(-s.width // tw)} tile columns, the last {s.width % tw or tw} "
+        "pixels wide)")
+    log(json.dumps(rec))
+    return rec
+
+
+def config_asteroids(RB):
+    import torch
+
+    from render_engine_tpu_torch import kernels
+
+    before = dict(kernels.LAUNCHES)
+    rec, eng = RB.bench_asteroids(scale=CONFIG_SCALE,
+                                  frames=CONFIG_FRAMES["asteroids"])
+    # drop_stats inside the benchmark launched K1 once more
+    render_launches("configs asteroids", before,
+                    WARMUP + CONFIG_FRAMES["asteroids"])
+    drops = rec["drops"]
+    img = eng.render()
+    sc = RB._scaler(CONFIG_SCALE)
+    if tuple(img.shape) != (sc(1080, 144), sc(1920, 256), 3) or \
+            not bool(torch.isfinite(img).all()) or float(img.max()) < 0.5:
+        raise RuntimeError("asteroids: image")
+    log(f"[configs asteroids] collision_large_budget "
+        f"{eng.config.collision_large_budget}, drop counters "
+        f"({len(drops)}): {drops}")
+    if eng.config.collision_large_budget != 64 or len(drops) != DROP_KEYS \
+            or any(drops.values()):
+        raise RuntimeError(f"asteroids: expected {DROP_KEYS} drop counters, "
+                           "all 0, at collision_large_budget 64")
+    log(json.dumps(rec))
+    return rec
+
+
+def config_tick(RB):
+    """The 100,000-entity world: steps, a burst, then one rendered frame
+    at max_tris 49152 with the kernels held to their plain versions."""
+    import torch
+
+    from render_engine_tpu_torch.logic import random as RND
+    from render_engine_tpu_torch.logic.step import STEP_DROP_KEYS
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec, eng = RB.bench_tick(scale=CONFIG_SCALE, frames=CONFIG_FRAMES["tick"],
+                             burst=CONFIG_FRAMES["tick_burst"])
+    log(f"[configs tick] built and stepped in "
+        f"{time.perf_counter() - t0:.1f} s: capacity {rec['capacity']}, "
+        f"{rec['alive']} alive, {1e3 / rec['steps_per_sec']:.2f} ms a step "
+        f"frame by frame, {1e3 / rec['scan_steps_per_sec']:.2f} ms a step "
+        f"in a run_frames burst of {CONFIG_FRAMES['tick_burst']}")
+    sc = RB._scaler(CONFIG_SCALE)
+    entities = sc(100000, 1000) + SCENE_FIXED_ENTITIES
+    if rec["alive"] != entities or \
+            rec["capacity"] != 1 << (entities + 58).bit_length():
+        raise RuntimeError(f"tick: {rec['alive']} alive of capacity "
+                           f"{rec['capacity']}")
+    c = eng.config
+    budgets = {"collision_query_dropped": "the step's query budget",
+               "collision_cell_dropped": f"collision_budget "
+               f"{c.collision_budget} a cell",
+               "collision_pair_dropped": f"collision_pairs "
+               f"{c.collision_pairs}",
+               "collision_large_dropped": f"collision_large_budget "
+               f"{c.collision_large_budget}",
+               "spawn_dropped": f"spawn_budget {c.spawn_budget}",
+               "oob_killed": "no budget: entities deleted out of bounds"}
+    step = {k: rec["drops"][k] for k in STEP_DROP_KEYS}
+    log(f"[configs tick] step counters: {step}")
+    for k, v in step.items():
+        if v:
+            log(f"[configs tick] FINDING: {k} = {v} ({budgets[k]})")
+    # the step's random draws are made on the host, bit for bit jax.random's:
+    # a key, one split per random callback, two uniform(3) draws
+    reps = 200
+    t0 = time.perf_counter()
+    for i in range(reps):
+        _, sub = RND.split(RND.key(i))
+        RND.uniform(sub, (3,), minval=-8.0, maxval=8.0)
+        RND.uniform(sub, (3,), minval=-2.0, maxval=2.0)
+    log(f"[configs tick] the step's host threefry draws (a key, a split, "
+        f"two uniform(3)): {(time.perf_counter() - t0) / reps * 1e3:.3f} ms "
+        "a step, whatever the entity count")
+    if eng.shadow_state.tick % c.shadow_update_interval:
+        raise RuntimeError("tick: the first rendered frame should render a "
+                           "shadow map")
+    img = hold_kernels(eng, "configs tick", k3=True)
+    if tuple(img.shape) != (sc(1080, 144), sc(1920, 256), 3) or \
+            not bool(torch.isfinite(img).all()):
+        raise RuntimeError("tick: image")
+    frame_through_plain(eng, "configs tick", f"whole {img.shape[1]}x"
+                        f"{img.shape[0]} frame at max_tris "
+                        f"{c.render.max_tris}")
+    rdrops = eng.render_drop_stats()
+    log(f"[configs tick] render counters at max_tris {c.render.max_tris}: "
+        f"{rdrops}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[configs tick] peak device memory {peak / 2**20:.0f} MiB")
+    rec["peak_memory_bytes"] = peak
+    log(json.dumps(rec))
+    return rec
+
+
+def config_playback(RB):
+    from render_engine_tpu_torch import kernels
+
+    before = dict(kernels.LAUNCHES)
+    rec, eng = RB.bench_playback(
+        scale=CONFIG_SCALE, frames=CONFIG_FRAMES["playback"],
+        recorded_frames=CONFIG_FRAMES["playback_recorded"])
+    render_launches("configs playback", before,
+                    WARMUP + CONFIG_FRAMES["playback_recorded"])
+    log(f"[configs playback] {CONFIG_FRAMES['playback']} step frames "
+        f"recorded at {1e3 / rec['record_fps']:.2f} ms and replayed at "
+        f"{1e3 / rec['value']:.2f} ms a frame; bit_deterministic "
+        f"{rec['bit_deterministic']}; past the end: parked "
+        f"{rec['past_end_parked']}, Up stepped one live frame "
+        f"{rec['past_end_up_stepped']}; {eng.history.num_frames} recorded "
+        f"1080p frames at {rec['recorded_ms_per_frame']:.2f} ms")
+    if not (rec["bit_deterministic"] and rec["past_end_parked"]
+            and rec["past_end_up_stepped"]):
+        raise RuntimeError("playback: the replay diverged, or the steps "
+                           "past the end misbehaved")
+    log(json.dumps(rec))
+    return rec
+
+
+def phase_configs():
+    """The benchmark configurations at full scene size with cut frame
+    counts; each is checked as the module docstring says."""
+    import torch
+
+    from benchmarks import run_benchmarks_torch as RB
+
+    for config in (config_scene, config_asteroids, config_tick,
+                   config_playback):
+        t0 = time.perf_counter()
+        config(RB)
+        torch.cuda.empty_cache()
+        log(f"[configs] {config.__name__[len('config_'):]}: "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
 def image_agreement(a, b):
     """Share of pixels within 2e-2, the median and the max of the per-pixel
     max abs difference of two images."""
@@ -1446,6 +1665,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rec_l, launches_l, frames_l = phase_lights()
     phase_golden()
+    phase_configs()
     # the two branch rows take their launches from their own phase's run
     rec.update(resolve_full_frame=rec_c, fused_shade_tile_lists=rec_l)
     for name, run, n in (("resolve_full_frame", launches_c, frames_c),

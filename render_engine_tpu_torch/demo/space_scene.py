@@ -10,6 +10,7 @@ asset ``debug_out/assets/station.{obj,mtl}`` with ``panels.ppm`` and
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -336,3 +337,34 @@ def build_space_engine(*, device="cuda", **kw) -> Engine:
     return Engine(cfg, camera=space_camera(cfg.render.width,
                                            cfg.render.height),
                   device=device)
+
+
+def build_many_lights_engine(*, device="cuda", n_lights: int = 256,
+                             light_tile_budget: int = 96, width: int = 1280,
+                             height: int = 720) -> Engine:
+    """The many-lights configuration: the space scene with 200 asteroids
+    (raster budgets 192 / 128: a 720p frame packs the cluster into fewer
+    tiles than 1080p), ``n_lights`` point lights made from seed 0 around
+    the scene (radii 40 to 90), a light table of ``n_lights`` point and 8
+    spot rows, per-tile light lists of ``light_tile_budget`` entries and
+    the demo's two render systems. Frames are not recorded."""
+    eng = build_space_engine(
+        device=device, width=width, height=height, capacity=1024,
+        num_asteroids=200, max_tris=24576, raster_tile_budget=192,
+        trans_tile_budget=128)
+    eng.config.record_history = False
+    nl = n_lights
+    rng = np.random.default_rng(0)
+    pos = (np.array([1000.0, 1000.0, 900.0])
+           + rng.uniform(-200, 200, (nl, 3))).astype(np.float32)
+    eng.spawn(
+        nl, position=pos,
+        sortable=np.full(nl, R.SORTABLE_POINT, np.int32),
+        light_diffuse=rng.uniform(0.2, 1.0, (nl, 3)).astype(np.float32),
+        light_atten=np.full((nl, 2), [0.05, 0.01], np.float32),
+        light_radius=rng.uniform(40.0, 90.0, nl).astype(np.float32))
+    eng.config.render = dataclasses.replace(
+        eng.config.render, max_point_lights=nl, max_spot_lights=8,
+        light_tile_budget=light_tile_budget)
+    eng.finalize_scene()
+    return eng

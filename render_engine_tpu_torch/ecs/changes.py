@@ -79,6 +79,18 @@ def with_despawn(cs: ChangeSet, mask) -> ChangeSet:
     return dataclasses.replace(cs, despawn_mask=cs.despawn_mask | mask)
 
 
+def with_flags(cs: ChangeSet, set_mask=None, set_bits=0, clear_mask=None,
+               clear_bits=0) -> ChangeSet:
+    """Queue flag bits to set on ``set_mask`` rows and to clear on
+    ``clear_mask`` rows (make static, wake up, marker flags)."""
+    sf, cf = cs.set_flags, cs.clear_flags
+    if set_mask is not None:
+        sf = torch.where(set_mask, sf | R.as_bits(set_bits), sf)
+    if clear_mask is not None:
+        cf = torch.where(clear_mask, cf | R.as_bits(clear_bits), cf)
+    return dataclasses.replace(cs, set_flags=sf, clear_flags=cf)
+
+
 def queue_spawn(cs: ChangeSet, registry: R.ComponentRegistry,
                 row_mask: torch.Tensor, **values) -> ChangeSet:
     """Queue spawn rows; slots are assigned in ``apply_changeset``."""
@@ -95,6 +107,51 @@ def queue_spawn(cs: ChangeSet, registry: R.ComponentRegistry,
     return dataclasses.replace(cs, spawns=dataclasses.replace(
         sp, values=new_vals, comp_bits=new_bits, row_valid=new_valid,
         count=new_valid.sum(dtype=torch.int32)))
+
+
+def with_add_reference(cs: ChangeSet, world: World, owner_mask: torch.Tensor,
+                       other: torch.Tensor) -> ChangeSet:
+    """Add a referenced (non-owning) entity edge per owner in
+    ``owner_mask``; ``other``: int32[CAP], the referenced id per owner row.
+    Set semantics: a duplicate is a no-op, and an owner with no free slot
+    among its ``MAX_REF_EDGES`` drops the add."""
+    rows = world["ref_edges"]
+    exists = (rows == other[:, None]).any(dim=1)
+    free = rows == -1
+    slot = torch.argmax(free.to(torch.int32), dim=1)
+    can = owner_mask & free.any(dim=1) & ~exists & (other >= 0)
+    cols = torch.arange(rows.shape[1], device=rows.device)
+    new = torch.where((cols[None, :] == slot[:, None]) & can[:, None],
+                      other[:, None].to(rows.dtype), rows)
+    return with_update(cs, "ref_edges", new, can)
+
+
+def with_remove_reference(cs: ChangeSet, world: World,
+                          owner_mask: torch.Tensor,
+                          other: torch.Tensor) -> ChangeSet:
+    """Remove the edge to ``other`` from each owner in ``owner_mask``."""
+    rows = world["ref_edges"]
+    hit = (rows == other[:, None]) & owner_mask[:, None]
+    new = torch.where(hit, torch.full_like(rows, -1), rows)
+    return with_update(cs, "ref_edges", new, owner_mask)
+
+
+def merge(a: ChangeSet, b: ChangeSet) -> ChangeSet:
+    """Compose two ChangeSets; ``b`` wins on overlapping writes, as if it
+    were applied after ``a``."""
+    out = a
+    for name, (v, m) in b.updates.items():
+        out = with_update(out, name, v, m)
+    out = dataclasses.replace(
+        out, set_flags=out.set_flags | b.set_flags,
+        clear_flags=out.clear_flags | b.clear_flags,
+        despawn_mask=out.despawn_mask | b.despawn_mask)
+    if b.spawns is not None and a.spawns is not None:
+        raise ValueError("merging two ChangeSets that both carry spawns is "
+                         "not supported; queue spawns into one set")
+    if b.spawns is not None:
+        out = dataclasses.replace(out, spawns=b.spawns)
+    return out
 
 
 def apply_changeset(world: World, cs: ChangeSet) -> World:

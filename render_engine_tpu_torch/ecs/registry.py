@@ -13,6 +13,8 @@ import dataclasses
 import torch
 
 MAX_COMPONENTS = 32
+# fixed budget of referenced (non-owning) entity edges an owner row holds
+MAX_REF_EDGES = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +49,7 @@ BUILTIN_COMPONENTS: tuple[ComponentSpec, ...] = (
     ComponentSpec("light_radius", (), "float32"),
     ComponentSpec("light_fov", (), "float32"),
     ComponentSpec("parent", (), "int32", -1),
-    ComponentSpec("ref_edges", (4,), "int32", -1),
+    ComponentSpec("ref_edges", (MAX_REF_EDGES,), "int32", -1),
 )
 
 FLAG_STATIC = 1 << 0

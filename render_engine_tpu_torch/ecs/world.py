@@ -39,6 +39,9 @@ class World:
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.comps[name]
 
+    def get(self, name: str) -> torch.Tensor:
+        return self.comps[name]
+
     def replace(self, **updates) -> "World":
         comps = dict(self.comps)
         top = {}
@@ -68,6 +71,14 @@ class World:
 
     def flag_set(self, flag: int) -> torch.Tensor:
         return self.alive & ((self.comps["flags"] & flag) != 0)
+
+    def user_index(self) -> torch.Tensor:
+        """Row of the dedicated user entity (the first row with
+        ``FLAG_USER``; 0 when there is none)."""
+        return torch.argmax(self.flag_set(R.FLAG_USER).to(torch.int32))
+
+    def count_alive(self) -> torch.Tensor:
+        return self.alive.sum()
 
     def sortable_mask(self, bucket: int) -> torch.Tensor:
         return self.alive & (self.comps["sortable"] == bucket)

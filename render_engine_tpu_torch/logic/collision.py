@@ -33,6 +33,30 @@ class CollisionResult:
     cell_dropped: torch.Tensor
     large_dropped: torch.Tensor
 
+    def any_hit(self) -> torch.Tensor:
+        """Not provided: the tables hold no capacity to scatter back to."""
+        raise NotImplementedError("use first_hit_of_type")
+
+    def first_hit_of_type(self, world: World, type_index: int):
+        """(other_idx int32[CAP], mask bool[CAP]): each query entity's first
+        colliding neighbor whose type is ``type_index`` (any type if
+        ``type_index < 0``), scattered back to entity space."""
+        cap = world.capacity
+        dev = world.device
+        other = torch.full((cap + 1,), -1, dtype=torch.int32, device=dev)
+        has = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+        for query, valid, cand, ctype, ok in self._tables(world):
+            if type_index >= 0:
+                ok = ok & (ctype == type_index)
+            has_q = ok.any(dim=-1)
+            first = ok.to(torch.int8).argmax(dim=-1, keepdim=True)
+            other_q = torch.gather(cand, 1, first)[:, 0].to(torch.int32)
+            dest = torch.where(valid, query, torch.full_like(query, cap))
+            other[dest] = torch.where(has_q, other_q,
+                                      torch.full_like(other_q, -1))
+            has[dest] = has_q
+        return other[:cap], has[:cap]
+
     def _tables(self, world: World):
         cap = world.capacity
         out = [(self.query, self.query_valid, self.cand, self.cand_type,

@@ -73,6 +73,16 @@ def refresh_transforms(world: World, model_aabb_min: torch.Tensor,
         aabb_max=torch.where(d, center_w + half_w, world["aabb_max"]))
 
 
+def world_transforms(world: World, indices=None) -> torch.Tensor:
+    """TRS matrices on demand, for every row or for ``indices`` (the read
+    path for user logic; the step never builds them)."""
+    pos, quat, scale = (world["position"], world["orientation"],
+                        world["scale"])
+    if indices is not None:
+        pos, quat, scale = pos[indices], quat[indices], scale[indices]
+    return T.compose_trs(pos, quat, scale)
+
+
 def handle_out_of_bounds(world: World, types
                          ) -> tuple[World, torch.Tensor, torch.Tensor]:
     """Clamp / mark / delete per type policy. Returns

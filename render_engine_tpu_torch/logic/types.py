@@ -76,6 +76,17 @@ class InputState:
             keys[i] = True
         return dataclasses.replace(self, keys=keys)
 
+    def pressed(self, i: int):
+        """Key ``i`` went down this frame."""
+        return self.keys[i] & ~self.prev_keys[i]
+
+    def released(self, i: int):
+        return ~self.keys[i] & self.prev_keys[i]
+
+    def held(self, i: int):
+        """Key ``i`` is down this frame and was down the frame before."""
+        return self.keys[i] & self.prev_keys[i]
+
     def with_prev(self, prev_keys) -> "InputState":
         return dataclasses.replace(self, prev_keys=prev_keys)
 

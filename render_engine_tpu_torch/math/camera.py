@@ -18,6 +18,9 @@ import torch
 
 from render_engine_tpu_torch.math import transforms as T
 
+PERSPECTIVE = 0
+ORTHOGRAPHIC = 1
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -30,6 +33,8 @@ class Camera:
     near: float = 0.1
     far: float = 1000.0
     draw_distance: float = 1000.0
+    projection_kind: int = PERSPECTIVE
+    ortho_half_extent: float = 100.0
     movement_factor: float = 0.9  # inertial decay per step
 
     @property
@@ -45,6 +50,10 @@ class Camera:
         return T.look_at(self.position, self.position + self.direction(), up)
 
     def projection_matrix(self) -> torch.Tensor:
+        if self.projection_kind == ORTHOGRAPHIC:
+            h = self.ortho_half_extent
+            return T.orthographic(-h, h, -h / self.aspect, h / self.aspect,
+                                  self.near, self.far).to(self.device)
         return T.perspective(self.fov_y, self.aspect, self.near, self.far,
                              device=self.device)
 
@@ -125,6 +134,11 @@ class CameraBuilder:
 
     def with_draw_distance(self, d):
         self._kw["draw_distance"] = float(d)
+        return self
+
+    def with_orthographic(self, half_extent):
+        self._kw["projection_kind"] = ORTHOGRAPHIC
+        self._kw["ortho_half_extent"] = float(half_extent)
         return self
 
     def with_movement_factor(self, f):

@@ -1,8 +1,8 @@
 """Rotations (quaternion), projections and 4x4 matrix helpers.
 
-Port of ``render_engine_tpu/math/transforms.py`` (the subset the frame
-uses). Conventions are unchanged: column vectors (p' = M @ p), right-handed
-world, +Y up, camera looking down -Z, GL clip space, quaternions (w, x, y, z).
+Port of ``render_engine_tpu/math/transforms.py``. Conventions are
+unchanged: column vectors (p' = M @ p), right-handed world, +Y up, camera
+looking down -Z, GL clip space, quaternions (w, x, y, z).
 
 Coordinate math stays full float32: a TF32 matrix product keeps ~3 decimal
 digits, which puts the far plane of a proj @ view hundreds of units off
@@ -27,6 +27,12 @@ def inv44(m: torch.Tensor) -> torch.Tensor:
     """4x4 inverse without the singularity check (``inv_ex`` does not wait
     for the device to report its LU status)."""
     return torch.linalg.inv_ex(m)[0]
+
+
+def quat_identity(shape=(), device=None) -> torch.Tensor:
+    q = torch.zeros(tuple(shape) + (4,), dtype=torch.float32, device=device)
+    q[..., 0] = 1.0
+    return q
 
 
 def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor
@@ -63,6 +69,23 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.where(n > 1e-12, n, torch.ones_like(n))
 
 
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) -> (..., 3, 3) rotation matrix."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate vectors (..., 3) by quaternions (..., 4)."""
     qv = q[..., 1:]
@@ -75,6 +98,36 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
+
+
+def compose_trs(translation: torch.Tensor, quat: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """T @ R @ S as a (..., 4, 4) matrix."""
+    rs = quat_to_matrix(quat) * scale[..., None, :]  # scales the columns
+    batch = torch.broadcast_shapes(rs.shape[:-2], translation.shape[:-1])
+    m = torch.zeros(batch + (4, 4), dtype=torch.float32, device=rs.device)
+    m[..., :3, :3] = rs
+    m[..., :3, 3] = translation
+    m[..., 3, 3] = 1.0
+    return m
+
+
+def apply_transform(matrix: torch.Tensor, points: torch.Tensor
+                    ) -> torch.Tensor:
+    """Apply a (..., 4, 4) affine to (..., N, 3) points -> (..., N, 3). The
+    products are formed term by term, so they stay full float32 whatever
+    the matmul settings."""
+    rot = matrix[..., None, :3, :3]
+    trans = matrix[..., :3, 3]
+    return (rot * points[..., None, :]).sum(dim=-1) + trans[..., None, :]
+
+
+def translation_update(matrix: torch.Tensor, new_translation: torch.Tensor
+                       ) -> torch.Tensor:
+    """A copy of ``matrix`` with only its translation column replaced."""
+    out = matrix.clone()
+    out[..., :3, 3] = new_translation
+    return out
 
 
 def look_at(eye: torch.Tensor, target: torch.Tensor, up: torch.Tensor

@@ -99,6 +99,11 @@ class ModelBank:
     def mat_texture_diss(self) -> torch.Tensor:
         return self.mat_textures[:, 4]
 
+    @property
+    def mat_texture_shin(self) -> torch.Tensor:
+        """Per-material shininess (specular exponent) map id (column 5)."""
+        return self.mat_textures[:, 5]
+
     def has_specular_maps(self) -> bool:
         return bool((self._tex_np[:, 1] >= 0).any())
 
@@ -110,6 +115,9 @@ class ModelBank:
 
     def has_dissolve_maps(self) -> bool:
         return bool((self._tex_np[:, 4] >= 0).any())
+
+    def has_shininess_maps(self) -> bool:
+        return bool((self._tex_np[:, 5] >= 0).any())
 
     def uniform_shininess(self):
         """The one shared specular exponent, or None when materials vary."""
@@ -144,6 +152,9 @@ class ModelBank:
     @property
     def num_triangles(self) -> int:
         return self.tri_v.shape[0]
+
+    def model_index(self, name: str) -> int:
+        return self.names.index(name)
 
     def lov_model_id(self, model_id, distance, draw_distance, band_bias=0):
         """(model, camera distance) -> bank entry of the distance band."""

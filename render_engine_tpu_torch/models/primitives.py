@@ -128,3 +128,10 @@ def tetrahedron(radius: float = 0.5):
     n = v / np.linalg.norm(v, axis=1, keepdims=True)
     uv = np.zeros((4, 2), np.float32)
     return _as_mesh(v, n, uv, f)
+
+
+def skybox_cube():
+    """Inward-facing cube of side 2 for the skybox (normals point inward)."""
+    v, n, uv, f = cube(2.0)
+    f = f[:, ::-1].copy()  # flip the winding to face inward
+    return _as_mesh(v, -n, uv, f)

@@ -31,6 +31,13 @@ class TextureAtlas:
     def num_textures(self) -> int:
         return self.tex_layer.shape[0]
 
+    def wasted_fraction(self) -> float:
+        """Fraction of allocated layer texels no texture occupies."""
+        total = self.layers.shape[0] * self.size * self.size
+        rect = self.uv_rect.cpu().numpy()
+        used = ((rect[:, 0] + 1.0) * (rect[:, 1] + 1.0)).sum()
+        return float(1.0 - used / total)
+
 
 class TextureAtlasBuilder:
     ERROR_COLORS = {

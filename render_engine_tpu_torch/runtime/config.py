@@ -16,6 +16,7 @@ class EngineConfig:
     world_length: float = 16384.0
     section_length: float = 64.0
     world_min: tuple = (0.0, 0.0, 0.0)
+    max_fps: float = 60.0  # the host loop's cap (runtime/host_loop.py)
     registry: ComponentRegistry = dataclasses.field(
         default_factory=ComponentRegistry)
     render: RenderSettings = dataclasses.field(default_factory=RenderSettings)

@@ -72,6 +72,30 @@ def first_occurrence_mask(nk: torch.Tensor) -> torch.Tensor:
     return ~(eq & earlier).any(dim=-1)
 
 
+def _cell_windows(grid: GridIndex, nk: torch.Tensor, b: int):
+    """Each neighbor cell's first ``b`` slots of the sorted index: (slot
+    (Q, 27, b), valid (Q, 27, b), cell_live (Q, 27), starts, ends)."""
+    sk = grid.sorted_keys.contiguous()
+    starts = torch.searchsorted(sk, nk.contiguous())
+    ends = torch.searchsorted(sk, nk.contiguous(), right=True)
+    slot = starts[..., None] + torch.arange(b, device=nk.device)
+    cell_live = first_occurrence_mask(nk)
+    valid = (slot < ends[..., None]) & cell_live[..., None]
+    return slot.clamp(0, grid.capacity - 1), valid, cell_live, starts, ends
+
+
+def neighbor_candidates(grid: GridIndex, query_keys: torch.Tensor,
+                        config: WorldConfig, per_cell_budget: int = 8):
+    """Candidate entity ids near each query cell: ``(cand, valid)`` of shape
+    (Q, 27 * per_cell_budget), up to the budget from each of the 27
+    neighbor cells (a cell's overflow is dropped)."""
+    nk = neighbor_cell_keys(query_keys, config)
+    b = per_cell_budget
+    slot, valid, _, _, _ = _cell_windows(grid, nk, b)
+    q = query_keys.shape[0]
+    return grid.perm[slot].reshape(q, 27 * b), valid.reshape(q, 27 * b)
+
+
 def neighbor_candidate_rows(grid: GridIndex, query_keys: torch.Tensor,
                             config: WorldConfig, sorted_rows: torch.Tensor,
                             per_cell_budget: int = 8):
@@ -79,17 +103,18 @@ def neighbor_candidate_rows(grid: GridIndex, query_keys: torch.Tensor,
     of the 27 cells around every query: (rows (Q, 27*b, C), valid
     (Q, 27*b), cell_dropped)."""
     nk = neighbor_cell_keys(query_keys, config)
-    sk = grid.sorted_keys.contiguous()
-    starts = torch.searchsorted(sk, nk.contiguous())
-    ends = torch.searchsorted(sk, nk.contiguous(), right=True)
     b = per_cell_budget
-    j = torch.arange(b, device=nk.device)
-    slot = starts[..., None] + j
-    cell_live = first_occurrence_mask(nk)
-    valid = (slot < ends[..., None]) & cell_live[..., None]
-    slot = slot.clamp(0, grid.capacity - 1)
+    slot, valid, cell_live, starts, ends = _cell_windows(grid, nk, b)
     q = query_keys.shape[0]
     rows = sorted_rows[slot.reshape(q, 27 * b)]
     cell_dropped = ((ends - starts - b).clamp(min=0)
                     * cell_live.to(torch.int64)).sum().to(torch.int32)
     return rows, valid.reshape(q, 27 * b), cell_dropped
+
+
+def occupied_section_count(grid: GridIndex) -> torch.Tensor:
+    """Number of distinct occupied sections (diagnostics / HUD)."""
+    sk = grid.sorted_keys
+    is_live = sk != _DEAD_KEY
+    new_run = torch.cat([is_live[:1], is_live[1:] & (sk[1:] != sk[:-1])])
+    return new_run.sum()

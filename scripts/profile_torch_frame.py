@@ -3,22 +3,28 @@
 
     python3 scripts/profile_torch_frame.py [--frames N] [--out DIR]
 
-Builds the space engine at 1920x1080 with 10,000 asteroids twice, with the
-demo's shadow defaults and without shadows, and on each:
+Builds the space engine at 1920x1080 with 10,000 asteroids three times:
+with the demo's shadow defaults, without shadows, and with shadows and a
+fragment-shading function on the lit render system (``chip_smoke.py``'s),
+and on each:
 
 * times N frames per turn (host clock, ``torch.cuda.synchronize()`` per
-  frame) over 5 rounds of turns (off, on, on, off), so both engines see
-  the same card and host and the spread between turns shows;
-* times the frame's three parts (step, shadow-map update, render) with a
-  synchronize between them;
+  frame) over 4 rounds of turns (none, shadows, custom, custom, shadows,
+  none), so the engines see the same card and host and the spread between
+  turns shows;
+* times the frame's three parts (step, shadow-map update, render) through
+  ``runtime.profiling.StageTimer`` with a synchronize after each: the
+  median of each stage's last timings and the timer's EWMA;
 * traces 6 frames with ``torch.profiler`` (CPU and CUDA): kernel launches a
   frame, device time a frame (the sum of the kernels' device time) and the
   device's busy share, both over the traced wall time (the profiler slows
   the host several times over) and over the untraced median frame.
 
-Prints one JSON object per engine and the card's name and power limit;
-writes the traces' ``key_averages`` tables under ``--out``. Needs a CUDA
-device.
+Prints one JSON object per engine, then the shading function's cost as the
+custom-shading engine minus the shadowed one, split into device time (from
+the traces) and the rest, which is the host's; then the card's name and
+power limit. Writes the traces' ``key_averages`` tables under ``--out``.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -52,36 +58,29 @@ def _timed_frames(eng, n):
 
 
 def _parts(eng, n):
-    """Median ms of the step, the shadow update (split into updates that
-    render a map and updates the interval skips) and the render."""
-    import torch
-
+    """The step, the shadow update (split into updates that render a map
+    and updates the interval skips) and the render through a StageTimer:
+    per stage the median of its last timings and its EWMA, in ms."""
     from render_engine_tpu_torch.logic.types import InputState
+    from render_engine_tpu_torch.runtime.profiling import StageTimer
 
-    parts = {"step": [], "shadow_map_update": [], "shadow_skipped_update": [],
-             "render": []}
+    timer = StageTimer()
     for _ in range(n):
         inputs = InputState.idle(eng.frame_index).with_prev(eng._prev_keys)
-        t0 = time.perf_counter()
-        eng.step(inputs, DT)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        with timer.stage("step", sync=eng.world):
+            eng.step(inputs, DT)
         sh = eng.shadow_state
         if sh is not None:
-            eng.update_shadows()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        eng.render()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        eng.frame_index += 1
-        parts["step"].append((t1 - t0) * 1e3)
-        if sh is not None:
             renders = sh.tick % eng.config.shadow_update_interval == 0
-            parts["shadow_map_update" if renders
-                  else "shadow_skipped_update"].append((t2 - t1) * 1e3)
-        parts["render"].append((t3 - t2) * 1e3)
-    return {k: statistics.median(v) for k, v in parts.items() if v}
+            with timer.stage("shadow_map_update" if renders
+                             else "shadow_skipped_update", sync=eng.world):
+                eng.update_shadows()
+        with timer.stage("render", sync=eng.world):
+            eng.render()
+        eng.frame_index += 1
+    ewma = timer.report()
+    return ({k: statistics.median(timer.history(k)) for k in ewma}, ewma,
+            timer.hud_line())
 
 
 def _trace(eng, frames, out_dir, tag):
@@ -127,16 +126,24 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     from render_engine_tpu_torch.demo.space_scene import build_space_engine
 
+    from chip_smoke import custom_systems
+
     engines = {"shadows": build_space_engine(device="cuda", **CONFIG),
                "no_shadows": build_space_engine(device="cuda",
                                                 enable_shadows=False,
-                                                **CONFIG)}
+                                                **CONFIG),
+               "custom_shading": build_space_engine(device="cuda", **CONFIG)}
+    shaded = engines["custom_shading"]
+    shaded.compiled_systems = custom_systems(shaded)[0]
     for eng in engines.values():
+        eng.config.record_history = False
         _timed_frames(eng, 6)  # warm-up: the kernel build, caches
     times = {k: [] for k in engines}
-    for name in ("no_shadows", "shadows", "shadows", "no_shadows") * 5:
+    for name in ("no_shadows", "shadows", "custom_shading", "custom_shading",
+                 "shadows", "no_shadows") * 4:
         engines[name].reset()
         times[name].append(_timed_frames(engines[name], args.frames))
+    results = {}
     for name, eng in engines.items():
         eng.reset()
         _timed_frames(eng, 3)
@@ -147,11 +154,25 @@ def main() -> int:
                    turn_medians),
                "ms_per_frame_turn_quartiles": statistics.quantiles(
                    turn_medians, n=4)[::2],
-               "part_ms_median": _parts(eng, 9)}
+               }
+        res["part_ms_median"], res["part_ms_ewma"], hud = _parts(eng, 9)
+        print(f"[{name}] {hud}", flush=True)
         res.update(_trace(eng, 6, args.out, name))
         res["device_busy_share_untraced"] = res["device_ms_per_frame"] / (
             statistics.median(sum(times[name], [])))
         print(json.dumps(res), flush=True)
+        results[name] = res
+    on, off = results["custom_shading"], results["shadows"]
+    total = (on["ms_per_frame_median_of_turns"]
+             - off["ms_per_frame_median_of_turns"])
+    device = on["device_ms_per_frame"] - off["device_ms_per_frame"]
+    print(json.dumps({"shading_function_cost": {
+        "ms_per_frame": total, "device_ms_per_frame": device,
+        "host_ms_per_frame": total - device,
+        "launches_per_frame": (on["launches_per_frame"]
+                               - off["launches_per_frame"]),
+        "render_part_ms": (on["part_ms_median"]["render"]
+                           - off["part_ms_median"]["render"])}}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
