@@ -80,6 +80,36 @@ Phases (any failure exits non-zero; no phase catches its own):
              memory); playback (300 step frames recorded and replayed bit
              for bit, two steps past the end, 10 recorded 1080p frames).
              Each prints its JSON line.
+  11. bands  (run right after phase 3, as phase 12) the captured frame of
+             phase 2 (1080p, 10,000 asteroids, both shadow slots mapped)
+             in 4 bands of tile rows through parallel.render_frame_band,
+             one after another on the card: each band launches K1, K2 and
+             K3 once; K1, K2 and K3 on band 2's inputs against their plain
+             versions (exact, exact, 1e-5); the bands joined equal to
+             render_frame at tile budgets 1.0 (torch.equal), and at the
+             headline's budgets, where a band's budget counts its own
+             tiles, within the JAX package's limits (max diff below 0.03,
+             at most 0.5% of pixels beyond 1e-6); then a one-rank NCCL
+             group (a file:// store in the build directory) through
+             make_mesh, scripts/multigpu_torch.sharded_frame (the step of
+             the whole world, render_frame_sharded) and gather_image, whose
+             image and world hash must equal Engine.frame's (torch.equal),
+             and shard_world / gather_world's world hash; ms of 4 bands
+             against one frame in turns, as a record. The engine's state
+             (history and frame times included) is put back.
+  12. nonfused the same frame through the non-fused tiled path (a
+             shadow_factor callback: the one the golden path builds from
+             the shadow maps): K1 once, K2 twice over every tile, no K3;
+             the frame through kernels against plain versions (1e-5) and
+             against the fused frame at tile budgets 1.0: 99.5% of pixels
+             within 1e-2 and median 0; without shadows max diff below
+             0.05; with shadows at pcf_scale 1 at most 1e-5 of the pixels
+             at 0.05 or more, none beyond 1/9, and each where the two
+             routes' PCF factors differ on the card (fused: camera NDC
+             through one composed matrix; non-fused: the unprojected world
+             position), the routes also computed on the host's CPU from
+             the same depth as a record; peak device memory; the render's
+             ms against the fused one in turns.
 The last three lines are the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 
@@ -96,6 +126,12 @@ also builds the kernels of DIR/render_engine_tpu_torch/csrc (an earlier
 checkout) and times them on the same captured inputs in turns (earlier,
 current, current, earlier); their time goes into the records' earlier_ms,
 which is null without the option.
+
+    python3 chip_smoke.py --shadow-routes profile_out/shadow_routes.npz
+
+also writes phase 12's shadowed frame's inputs (depth and winner tiles,
+shadow maps, camera) and both routes' factors, which
+scripts/shadow_routes_jax.py holds against the JAX package's two routes.
 """
 
 from __future__ import annotations
@@ -165,6 +201,17 @@ KERNELS = {  # record name -> (launch-count key, source, TPU kernel)
                                "render_engine_tpu/render/shade_pallas.py:249"),
 }
 MAIN_PATH = ("tile_raster", "tile_raster_one_pass", "resolve", "fused_shade")
+# phase 11: bands of tile rows, and the image limits of the JAX package's
+# sharded render (tests/test_parallel.py, __graft_entry__.py:198-203)
+BANDS = 4
+BAND_MAX_DIFF, BAND_MAX_SHARE = 0.03, 0.005
+BAND_TURNS = ("frame", "bands", "bands", "frame") * 2
+# phase 12: the non-fused frame against the fused one (tests/
+# test_frame_tiled.py:277, shadows at shadow_tile_budget 1.0)
+NONFUSED_MAX_DIFF = 0.05
+NONFUSED_FLIPS = 1e-5  # share of pixels whose PCF taps may flip
+FLIP_MAX = 1.0 / 9.0  # ceiling on a flipped pixel's change (0.0587 seen)
+NONFUSED_TURNS = ("fused", "nonfused", "nonfused", "fused") * 2
 DROP_KEYS = 13  # 6 step counters and 7 render counters with shadows
 DROP_KEYS_LIGHTS = 14  # and light_tile_overflow with a light-list budget
 LIVE_BINS = (0, 1, 9, 17, 33, 65, 129, 257)  # K1 live candidates a tile
@@ -1551,6 +1598,394 @@ def phase_configs():
             f"{time.perf_counter() - t0:.1f} s")
 
 
+def engine_state(eng):
+    """What a frame changes on ``eng``, to put back afterwards."""
+    return (eng.world.clone(), eng.camera, eng.shadow_state.clone(),
+            eng.frame_index, eng._prev_keys.copy(), eng.history,
+            len(eng._frame_times))
+
+
+def restore_state(eng, state):
+    w, cam, sh, index, prev, history, n_times = state
+    eng.world, eng.camera, eng.shadow_state = w.clone(), cam, sh.clone()
+    eng.frame_index, eng._prev_keys = index, prev.copy()
+    eng.history = history
+    del eng._frame_times[n_times:]
+
+
+def band_agreement(img, ref):
+    """Max abs diff and share of pixels beyond 1e-6 of two images."""
+    diff = (img - ref).abs().amax(dim=-1)
+    return float(diff.max()), float((diff > 1e-6).double().mean())
+
+
+def phase_bands(eng):
+    """Phase 11 (module docstring) on the engine's current state."""
+    import torch
+    import torch.distributed as dist
+
+    from render_engine_tpu_torch import kernels
+    from render_engine_tpu_torch.logic.types import InputState
+    from render_engine_tpu_torch.parallel import (gather_image, gather_world,
+                                                  make_mesh,
+                                                  render_frame_band,
+                                                  shard_world)
+    from render_engine_tpu_torch.render import raster_pallas as RP
+    from render_engine_tpu_torch.render import shade_pallas as SP
+    from render_engine_tpu_torch.runtime.profiling import turn_medians as tm
+    from render_engine_tpu_torch.utils.hashing import world_hash
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import multigpu_torch as MG
+
+    from render_engine_tpu_torch.render.frame import render_frame
+
+    # texture and shadow tile budgets are fractions of a band's tiles, as in
+    # the JAX package: at the headline's 0.04 and 0.28 a band may overflow
+    # where the frame does not. At 1.0 every tile is textured and shadowed,
+    # and the bands give the whole frame's rows bit for bit (measured on
+    # this frame: the shift by whole tile rows changes no K1 edge test)
+    s0 = eng.config.render
+    s = dataclasses.replace(s0, texture_tile_budget=1.0,
+                            shadow_tile_budget=1.0)
+    kw = dict(cubemap=eng.cubemap, atlas=eng.atlas,
+              shadow_state=eng.shadow_state, systems=eng.compiled_systems)
+
+    def band(r, settings=s):
+        return render_frame_band(eng.world, eng.camera, eng.bank, settings,
+                                 rank=r, n_ranks=BANDS, **kw)
+
+    kernels.reset_launch_counts()
+    bands = []
+    for r in range(BANDS):
+        before = dict(kernels.LAUNCHES)
+        if r == 2:
+            with Capture(RP, "tile_raster") as k1, \
+                    Capture(RP, "resolve_attributes_pallas") as k2, \
+                    Capture(SP, "shade_tiles") as k3:
+                bands.append(band(r))
+        else:
+            bands.append(band(r))
+        got = launch_delta(before)
+        log(f"[bands] band {r} of {BANDS} ({bands[-1].shape[0]} rows from "
+            f"row {r * bands[-1].shape[0]}): launches {got}")
+        if got != frame_launches(False):
+            raise RuntimeError(f"band {r} launched {got}, expected K1, K2 "
+                               "and K3 once each")
+    launches = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    (a1, kw1), = k1.calls
+    a2, _ = k2.calls[0]
+    a3, kw3 = k3.calls[0]
+    for name, tol, got, want, what in (
+            ("K1", 0.0, RP.tile_raster(*a1, **kw1),
+             RP.tile_raster_reference(*a1, **kw1),
+             f"data {tuple(a1[0].shape)}"),
+            ("K2", 0.0, [RP.resolve_attributes_pallas(*a2)],
+             [RP.resolve_attributes_reference(*a2)],
+             f"slot {tuple(a2[0].shape)}, rows {tuple(a2[1].shape)}"),
+            ("K3", 1e-5, [SP.shade_tiles(*a3, **kw3)],
+             [SP.fused_shade_reference(*a3, **kw3)],
+             f"rows {tuple(a3[0].shape)}, pixel origin {a3[9].tolist()}")):
+        err = check_close(f"bands {name}", got, want, tol)
+        log(f"[bands] {name} on band 2's inputs ({what}): max_abs_err "
+            f"{err:.3g} (tolerance {tol})")
+    img = torch.cat(bands)[:s.height]
+    whole = render_frame(eng.world, eng.camera, eng.bank, s, **kw)
+    worst, share = band_agreement(img, whole)
+    log(f"[bands] {BANDS} bands joined against render_frame, tile budgets "
+        f"1.0: equal {torch.equal(img, whole)} (max abs diff {worst:.3g}, "
+        f"{share:.4%} of pixels beyond 1e-6; required: equal)")
+    if not torch.equal(img, whole):
+        raise RuntimeError("the bands differ from the whole frame at tile "
+                           "budgets 1.0")
+    img0 = torch.cat([band(r, s0) for r in range(BANDS)])[:s.height]
+    worst0, share0 = band_agreement(img0, eng.render())
+    log(f"[bands] at the headline's texture / shadow tile budgets "
+        f"{s0.texture_tile_budget} / {s0.shadow_tile_budget} (a band's "
+        f"budget is that fraction of its own tiles): max abs diff "
+        f"{worst0:.3g}, {share0:.4%} of pixels beyond 1e-6 (limits "
+        f"{BAND_MAX_DIFF}, {BAND_MAX_SHARE:.1%})")
+    if not (worst0 < BAND_MAX_DIFF and share0 < BAND_MAX_SHARE):
+        raise RuntimeError("the bands differ from the whole frame at the "
+                           "headline's budgets")
+
+    # one rank of a NCCL group: the band is the whole frame
+    store = os.path.join(HERE, "render_engine_tpu_torch", "_build",
+                         "nccl_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    state = engine_state(eng)
+    recording, eng.config.record_history = eng.config.record_history, False
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        inputs = InputState.idle(eng.frame_index)
+        img_e = eng.frame(inputs, DT)
+        hash_e = world_hash(eng.world)
+        restore_state(eng, state)
+        img_s = gather_image(MG.sharded_frame(eng, mesh, inputs), mesh,
+                             s.height)
+        hash_s = world_hash(eng.world)
+        hash_g = world_hash(gather_world(shard_world(eng.world, mesh), mesh))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        restore_state(eng, state)
+        eng.config.record_history = recording
+    log(f"[bands] one-rank NCCL group ({mesh.device}): image equals "
+        f"Engine.frame's: {torch.equal(img_s, img_e)}; world hash "
+        f"{hash_s[:16]} against {hash_e[:16]}, after shard_world and "
+        f"gather_world {hash_g[:16]}")
+    if not torch.equal(img_s, img_e) or not hash_s == hash_g == hash_e:
+        raise RuntimeError("the one-rank sharded frame differs from "
+                           "Engine.frame")
+
+    mode = {}
+    turns = tm(lambda: (torch.cat([band(r, s0) for r in range(BANDS)])
+                        if mode["which"] == "bands" else eng.render()),
+               BAND_TURNS, lambda which: mode.update(which=which),
+               frames=TURN_FRAMES, log=log, label="bands",
+               what=f"{BANDS} bands one after another against one frame (a "
+               "record, not a speed-up): ")[0]
+    return launches, turns
+
+
+def unshadowed(kind, i, pos):
+    """A ``shadow_factor`` that shadows nothing."""
+    return 1.0
+
+
+def shadows_of(sh, world, s):
+    """The ``shadow_factor`` the golden path builds from ``sh`` for the
+    lights a frame of ``s`` extracts: handed to ``render_frame``, the
+    shadowed frame takes the non-fused tiled path."""
+    from render_engine_tpu_torch.render import lighting as L
+    from render_engine_tpu_torch.render import shadows as SHD
+
+    lights = L.extract_lights(world, max_dir=s.max_dir_lights,
+                              max_point=s.max_point_lights,
+                              max_spot=s.max_spot_lights)
+    return SHD.make_shadow_factor(sh, world, {"dir": lights.dir_entity,
+                                              "spot": lights.sp_entity,
+                                              "point": lights.pt_entity})
+
+
+def route_factors(sh, depth, winner, proj_view, s):
+    """Both shading routes' PCF factors of every active shadow slot at
+    every pixel, each (S, H, W), from the ``depth`` and ``winner`` tiles
+    (NT, th, tw) of one raster, on their device: the fused path's
+    (camera NDC through light_mat @ inv_proj_view,
+    ``frame._per_slot_factor_tiles``) and the non-fused path's (the
+    G-buffer's unprojected world position, ``shadows.slot_factors``)."""
+    import torch
+
+    from render_engine_tpu_torch.math import transforms as T
+    from render_engine_tpu_torch.render import frame as F
+    from render_engine_tpu_torch.render import raster_pallas as RP
+    from render_engine_tpu_torch.render import shadows as SHD
+
+    d, wn = depth, winner
+    th, tw = s.raster.tile_h, s.raster.tile_w
+    tiles_x, tiles_y = -(-s.width // tw), -(-s.height // th)
+    nt = d.shape[0]
+    inv_pv = T.inv44(proj_view)
+    sft, sfi = F._per_slot_factor_tiles(sh, d, wn, tiles_x, th, tw, s.width,
+                                        s.height, inv_pv, 0.0, 1.0)
+    slots = torch.arange(sh.slots, device=d.device)[:, None]
+    fused = torch.where((sfi >= 0)[..., None, None],
+                        sft[slots, sfi.clamp(min=0)], 1.0)
+    # the position depends on no attribute channel
+    px, py = RP._tall_pixel_centers(torch.arange(nt, device=d.device),
+                                    tiles_x, th, tw)
+    g, _ = RP._gbuffer_from_channels(
+        d.new_zeros(35, nt * th, tw), d.reshape(nt * th, tw),
+        wn.reshape(nt * th, tw), s.height, s.width, inv_pv, px=px, py=py)
+    tall = SHD.slot_factors(sh, g.position)
+    active = sh.slot_entity >= 0
+    return [torch.stack([RP._untile_tall(f[i].reshape(-1, tw), tiles_y,
+                                         tiles_x, th, tw, s.height, s.width)
+                         for i in range(sh.slots)])[active]
+            for f in (fused, tall)]
+
+
+def route_inputs(eng, s):
+    """The depth and winner tiles of ``eng``'s frame (K1, two layers) and
+    the camera's proj_view: what ``route_factors`` starts from."""
+    from render_engine_tpu_torch.render import frame as F
+    from render_engine_tpu_torch.render import raster_pallas as RP
+
+    th, tw = s.raster.tile_h, s.raster.tile_w
+    tiles_x, tiles_y = -(-s.width // tw), -(-s.height // th)
+    batch = F.frame_inputs(eng.world, eng.camera, eng.bank, s,
+                           cubemap=eng.cubemap,
+                           systems=eng.compiled_systems)["batch"]
+    tri_class = RP._tri_class(batch)
+    cand, counts = RP._candidate_table(batch, s.raster, tiles_x, tiles_y,
+                                       tri_class)
+    d, wn, *_ = RP._launch(batch, s.height, s.width, s.raster, tri_class,
+                           two_pass=True, cand=cand, counts=counts)
+    return dict(depth=d, winner=wn, proj_view=eng.camera.proj_view())
+
+
+def save_shadow_routes(path, sh, s, inputs, flips, a, b, routes):
+    """What a check of the JAX package's two routes on this frame needs
+    (scripts/shadow_routes_jax.py), as a numpy archive."""
+    import numpy as np
+
+    ys, xs = flips.cpu().unbind(1)
+    routes = {k: v.cpu() for k, v in routes.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(
+        path, width=s.width, height=s.height, tile_h=s.raster.tile_h,
+        tile_w=s.raster.tile_w, resolution=sh.resolution,
+        maps=sh.maps.cpu().numpy(), light_mats=sh.light_mats.cpu().numpy(),
+        slot_entity=sh.slot_entity.cpu().numpy(),
+        slot_face=sh.slot_face.cpu().numpy(),
+        **{k: v.cpu().numpy() for k, v in inputs.items()},
+        flips=flips.cpu().numpy(), color_fused=a.cpu()[ys, xs].numpy(),
+        color_nonfused=b.cpu()[ys, xs].numpy(),
+        **{f"factors_{k}": v[:, ys, xs].numpy() for k, v in routes.items()},
+        routes_differ=(routes["fused"] != routes["nonfused"]).any(
+            dim=0).numpy(),
+        routes_differ_cpu=(routes["fused_cpu"] != routes["nonfused_cpu"]
+                           ).any(dim=0).numpy())
+    log(f"[nonfused] the two routes' inputs and factors written to {path}")
+
+
+def phase_nonfused(eng, routes_path=None):
+    """Phase 12 (module docstring) on the engine's current state. Returns
+    the launches of its counted frame."""
+    import torch
+
+    from render_engine_tpu_torch import kernels
+    from render_engine_tpu_torch.render import raster_pallas as RP
+    from render_engine_tpu_torch.render.frame import render_frame
+    from render_engine_tpu_torch.runtime.profiling import turn_medians as tm
+
+    s0 = eng.config.render
+    kw = dict(cubemap=eng.cubemap, atlas=eng.atlas,
+              systems=eng.compiled_systems)
+
+    def nonfused():
+        return render_frame(eng.world, eng.camera, eng.bank, s0,
+                            shadow_factor=shadows_of(eng.shadow_state,
+                                                     eng.world, s0), **kw)
+
+    nt = -(-s0.height // s0.raster.tile_h) * -(-s0.width // s0.raster.tile_w)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with Capture(RP, "resolve_attributes_pallas",
+                 note=lambda slot, rows, *a, **kw: tuple(rows.shape)) as k2:
+        img_n = nonfused()
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(frame_launches(False, resolve=2), fused_shade=0)
+    log(f"[nonfused] launches in one frame: {launches}; K2 over "
+        f"{[c[0] for c in k2.calls]} tiles with rows {k2.calls[0]}; peak "
+        f"device memory {peak / 2**20:.0f} MiB")
+    if launches != want or [c[0] for c in k2.calls] != [nt, nt]:
+        raise RuntimeError(f"nonfused frame launched {launches}, expected "
+                           f"{want} with K2 over {nt} tiles twice")
+    with Plain():
+        img_p = nonfused()
+    torch.cuda.synchronize()
+    err = float((img_n - img_p).abs().max())
+    log(f"[nonfused] kernels vs plain versions, whole 1080p frame with "
+        f"shadows: max abs diff {err:.3g}")
+    if not err <= 1e-5:
+        raise RuntimeError(f"nonfused frame through the kernels differs by "
+                           f"{err}")
+    # against the fused frame as the JAX package holds them (tests/
+    # test_frame_tiled.py:103-110, 277) at tile budgets 1.0: 99.5% of
+    # pixels within 1e-2, median 0 and max below 0.05; with shadows at
+    # pcf_scale 1 at most NONFUSED_FLIPS of the pixels may reach 0.05, by
+    # no more than FLIP_MAX, and only where the two routes' PCF factors
+    # differ: the fused path takes camera NDC to light clip space through
+    # one composed matrix, the non-fused path through the world position;
+    # for a far pixel both are differences of terms near 1e3, so the two
+    # land on texels or sides of the frustum that may differ, in the JAX
+    # package as here (scripts/shadow_routes_jax.py). At the demo's
+    # pcf_scale 3 the two paths also subsample on different grids (every
+    # k-th row of a tile against every k-th row of the tall layout): a
+    # record
+    sh = eng.shadow_state
+    sh1 = dataclasses.replace(sh, pcf_scale=1)
+    exact = dataclasses.replace(s0, shadow_tile_budget=1.0,
+                                texture_tile_budget=1.0)
+    for what, shadow in (("no shadows", None),
+                         ("shadows at pcf_scale 1", sh1),
+                         (f"shadows at pcf_scale {sh.pcf_scale} (a record)",
+                          sh)):
+        a = render_frame(eng.world, eng.camera, eng.bank, exact,
+                         shadow_state=shadow, **kw)
+        b = render_frame(eng.world, eng.camera, eng.bank, exact,
+                         shadow_factor=(unshadowed if shadow is None else
+                                        shadows_of(shadow, eng.world, exact)),
+                         **kw)
+        diff = (a - b).abs().amax(dim=-1)
+        near = float((diff < 1e-2).double().mean())
+        flips = diff >= NONFUSED_MAX_DIFF
+        worst, med = float(diff.max()), float(diff.median())
+        log(f"[nonfused] against the fused frame, {what}, tile budgets 1.0: "
+            f"max {worst:.3g}, {near:.6f} of pixels within 1e-2, median "
+            f"{med:.3g}, {int(flips.sum())} pixels at {NONFUSED_MAX_DIFF} or "
+            "more")
+        if shadow is sh:
+            continue
+        ok = near > 0.995 and med <= 1e-5
+        if shadow is None:
+            ok = ok and worst < NONFUSED_MAX_DIFF
+        else:
+            # the same routes from the same depth on the host's CPU: the
+            # light-space position of a far pixel is a difference of terms
+            # near 1e3, so the two devices may round a tap apart
+            inputs = route_inputs(eng, exact)
+            routes = dict(zip(("fused", "nonfused"),
+                              route_factors(sh1, **inputs, s=exact)))
+            sh_cpu = dataclasses.replace(
+                sh1, maps=sh1.maps.cpu(), light_mats=sh1.light_mats.cpu(),
+                slot_entity=sh1.slot_entity.cpu(),
+                slot_face=sh1.slot_face.cpu())
+            routes.update(zip(("fused_cpu", "nonfused_cpu"), route_factors(
+                sh_cpu, **{k: v.cpu() for k, v in inputs.items()},
+                s=exact)))
+            differ = (routes["fused"] != routes["nonfused"]).any(dim=0)
+            differ_cpu = (routes["fused_cpu"] != routes["nonfused_cpu"]
+                          ).any(dim=0)
+            at = torch.nonzero(flips)
+            log(f"[nonfused] the two routes' PCF factors differ at "
+                f"{int(differ.sum())} pixels on the card, at "
+                f"{int(differ_cpu.sum())} on the host's CPU from the same "
+                f"depth; at each pixel at {NONFUSED_MAX_DIFF} or more (y, x, "
+                "diff; fused / non-fused factors of the active slots on the "
+                "card, then on the CPU): " + "; ".join(
+                    f"{y} {x} {float(diff[y, x]):.4f}; " + " ".join(
+                        f"{routes[k][:, y, x].tolist()}" for k in routes)
+                    for y, x in at.tolist()[:8]))
+            ok = (ok and worst <= FLIP_MAX
+                  and float(flips.double().mean()) <= NONFUSED_FLIPS
+                  and bool(differ[flips].all()))
+            if routes_path:
+                save_shadow_routes(routes_path, sh1, exact, inputs, at, a, b,
+                                   routes)
+        if not ok:
+            raise RuntimeError(f"the nonfused frame differs from the fused "
+                               f"one ({what})")
+    mode = {}
+    turns = tm(lambda: nonfused() if mode["which"] == "nonfused"
+               else eng.render(), NONFUSED_TURNS,
+               lambda which: mode.update(which=which), frames=TURN_FRAMES,
+               log=log, label="nonfused",
+               what="render of the captured frame: ")[0]
+    return launches, turns, peak
+
+
 def image_agreement(a, b):
     """Share of pixels within 2e-2, the median and the max of the per-pixel
     max abs difference of two images."""
@@ -1616,6 +2051,10 @@ def main() -> int:
     ap.add_argument("--earlier", metavar="DIR",
                     help="an earlier checkout whose kernels to time in "
                          "turns with the current ones")
+    ap.add_argument("--shadow-routes", metavar="NPZ",
+                    help="write phase 12's shadowed frame's inputs and both "
+                         "routes' PCF factors there (read by "
+                         "scripts/shadow_routes_jax.py)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -1649,6 +2088,8 @@ def main() -> int:
         f"{SLICE}")
     rec = phase_kernels(eng, earlier)
     phase_frame(eng)
+    phase_bands(eng)
+    launches_n, _, _ = phase_nonfused(eng, args.shadow_routes)
     phase_small()
     launches = phase_slice(eng)
     replay_launches = phase_replay(eng)
@@ -1679,6 +2120,10 @@ def main() -> int:
                  launches=launches[key], launches_per_frame=per_frame[n],
                  replay_launches=replay_launches.get(key, 0), **rec[n])
             for n, (key, src, rep) in KERNELS.items()]
+    # K2 over every tile also carries the non-fused frame (phase 12): two
+    # launches over every tile, one of each layer
+    kern[list(KERNELS).index("resolve_full_frame")]["nonfused_launches"] = \
+        launches_n["resolve"]
     log(json.dumps({"kernels": kern}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 Port of ``render_engine_tpu/render/frame.py``. ``render_frame`` first runs
 the render systems' draw callbacks (instance gate, this frame's uniform
-rows, skybox toggle), then takes one of two paths:
+rows, skybox toggle), then takes one of three paths:
 
 * the fused tiled path (``backend="auto"``, on every device):
   ``tiled_fused_core`` runs binning, the packed candidate rows, K1 (tile
@@ -12,12 +12,14 @@ rows, skybox toggle), then takes one of two paths:
   for systems with a fragment-shading function, ``_fused_custom_shading``
   per layer (K2 over every tile, the G-buffer from its channels, the user
   function on its system's pixels), and the compose over the background;
-* the golden path (``backend="jnp"``, or a custom ``shadow_factor``): the
-  image-layout raster and G-buffer resolve of ``raster_jnp.py`` and
-  ``lighting.shade`` per layer, with the same systems semantics.
-
-The JAX package's non-fused tiled path (``fused_shading=False`` on its
-Pallas backend) is not ported.
+* the non-fused tiled path (``backend="auto"`` given a custom
+  ``shadow_factor``, which cannot run inside K3's light loop):
+  ``_render_frame_tiled`` runs K1 and K2 over every tile of both layers
+  (``raster_pallas.gbuffers_tall``), the atlas, ``lighting.shade`` per
+  layer and the compose;
+* the golden path (``backend="jnp"``): the image-layout raster and G-buffer
+  resolve of ``raster_jnp.py`` and ``lighting.shade`` per layer, with the
+  same systems semantics.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from render_engine_tpu_torch.render import shadows as SHD
 from render_engine_tpu_torch.render import skybox as SB
 from render_engine_tpu_torch.render.geometry import (build_triangle_batch,
                                                      perturb_normal,
-                                                     to_screen)
+                                                     to_screen,
+                                                     triangle_tangents)
 from render_engine_tpu_torch.render.raster_jnp import (
     RasterConfig, rasterize_depth_winner, resolve_gbuffer)
 from render_engine_tpu_torch.render.shade_pallas import (fused_shade,
@@ -94,7 +97,8 @@ def render_frame(world, camera, bank, settings: RenderSettings, *,
     ``shadow_state``: a ``shadows.ShadowState`` whose maps PCF-attenuate
     the lights that own its slots (opaque layer). ``shadow_factor``: a
     custom callback (kind, index, world_pos) -> factor in its place; it
-    cannot run inside K3's light loop, so the frame takes the golden path.
+    cannot run inside K3's light loop, so the frame takes the non-fused
+    tiled path.
     ``systems``: ``render_system.CompiledSystems``, folded into the pass as
     per-triangle data, with their draw and shading callbacks. ``inputs``:
     the frame's ``InputState`` (tensors), which draw callbacks read."""
@@ -103,6 +107,37 @@ def render_frame(world, camera, bank, settings: RenderSettings, *,
     if settings.backend not in BACKENDS:
         raise ValueError(f"backend {settings.backend!r} is none of "
                          f"{BACKENDS}")
+    h, w = settings.height, settings.width
+    f = frame_inputs(world, camera, bank, settings, cubemap=cubemap,
+                     systems=systems, inputs=inputs)
+    if settings.backend == "jnp":
+        return _render_frame_golden(world, camera, bank, settings, **f,
+                                    atlas=atlas, shadow_state=shadow_state,
+                                    shadow_factor=shadow_factor,
+                                    systems=systems)
+    if shadow_factor is not None:
+        return _render_frame_tiled(world, camera, bank, settings, **f,
+                                   atlas=atlas, shadow_factor=shadow_factor,
+                                   systems=systems)
+    tri_sys = None
+    if systems is not None and systems.has_shade_callbacks():
+        tri_sys = RS.triangle_system_ids(f["batch"], world, systems)
+    return tiled_fused_core(f["batch"], f["lights"], bank, settings, camera,
+                            width=w, h_total=h, h_local=h, y_off=0.0,
+                            background=f["background"],
+                            ent_attrs=f["ent_attrs"], atlas=atlas,
+                            shadow_state=shadow_state, systems=systems,
+                            draw_ctx=f["draw_ctx"], tri_sys=tri_sys)
+
+
+def frame_inputs(world, camera, bank, settings: RenderSettings, *,
+                 cubemap=None, systems=None, inputs=None) -> dict:
+    """What every path of a frame starts from, for the whole image: the
+    draw callbacks' context (``draw_ctx``, None without callbacks), the
+    screen-space triangle ``batch``, the systems' per-entity ``ent_attrs``,
+    the ``lights`` and the ``background``, skybox toggle applied."""
+    from render_engine_tpu_torch.render import render_system as RS
+
     h, w = settings.height, settings.width
     draw_ctx = None
     if systems is not None and systems.has_draw_callbacks():
@@ -121,21 +156,8 @@ def render_frame(world, camera, bank, settings: RenderSettings, *,
     background = _gate_skybox(
         SB.background_for(camera, cubemap, h, w, settings.clear_color),
         None if draw_ctx is None else draw_ctx.skybox_on, settings)
-    if settings.backend == "jnp" or shadow_factor is not None:
-        return _render_frame_golden(
-            world, camera, bank, settings, batch=batch, lights=lights,
-            background=background, ent_attrs=ent_attrs, atlas=atlas,
-            shadow_state=shadow_state, shadow_factor=shadow_factor,
-            systems=systems, draw_ctx=draw_ctx)
-    tri_sys = None
-    if systems is not None and systems.has_shade_callbacks():
-        tri_sys = RS.triangle_system_ids(batch, world, systems)
-    return tiled_fused_core(batch, lights, bank, settings, camera, width=w,
-                            h_total=h, h_local=h, y_off=0.0,
-                            background=background, ent_attrs=ent_attrs,
-                            atlas=atlas, shadow_state=shadow_state,
-                            systems=systems, draw_ctx=draw_ctx,
-                            tri_sys=tri_sys)
+    return dict(draw_ctx=draw_ctx, batch=batch, ent_attrs=ent_attrs,
+                lights=lights, background=background)
 
 
 def _render_frame_golden(world, camera, bank, settings, *, batch, lights,
@@ -234,19 +256,82 @@ def _render_frame_golden(world, camera, bank, settings, *, batch, lights,
     return color.clamp(0.0, 1.0)
 
 
-def _tall_pixel_centers(tids, tiles_x, th, twd):
-    """Pixel-center (px, py), each (NT * th, tw) float32, of the tiles
-    ``tids`` in the tall layout (tile after tile, band-local rows)."""
-    nt, dev = tids.shape[0], tids.device
-    oy = (torch.div(tids, tiles_x, rounding_mode="floor") * th).to(
+def _render_frame_tiled(world, camera, bank, settings, *, batch, lights,
+                        background, ent_attrs, atlas, shadow_factor,
+                        systems, draw_ctx) -> torch.Tensor:
+    """The non-fused tiled path: the G-buffers and shading planes of both
+    layers in the tall tile layout (``raster_pallas.gbuffers_tall``), the
+    atlas, ``lighting.shade`` per layer (``shadow_factor`` on the opaque
+    one), custom shading, then one untile of what the compose needs."""
+    from render_engine_tpu_torch.render import render_system as RS
+
+    cfg = settings.raster
+    h, w = settings.height, settings.width
+    th, twd = cfg.tile_h, cfg.tile_w
+    tiles_x, tiles_y = -(-w // twd), -(-h // th)
+    gbuf, extras, t_gbuf, t_extras = RP.gbuffers_tall(
+        batch, bank, h, w, cfg, T.inv44(camera.proj_view()),
+        ent_attrs=ent_attrs)
+    if atlas is not None:
+        gbuf = _texture_gbuffer(gbuf, extras, atlas, bank, batch)
+        t_gbuf = _texture_gbuffer(t_gbuf, t_extras, atlas, bank, batch)
+    zeros = torch.zeros(gbuf.position.shape, device=batch.xy.device)
+
+    def shade(g, ex, factor):
+        return L.shade(g, lights, bank, camera.position, background=zeros,
+                       shadow_factor=factor, emissive_image=ex["emissive"],
+                       specular_image=ex["specular"],
+                       shininess_image=ex.get("shininess"))
+
+    color = shade(gbuf, extras, shadow_factor)
+    # the transparent layer without shadow lookups, as the reference draws
+    t_lit = shade(t_gbuf, t_extras, None)
+    if systems is not None and systems.has_shade_callbacks():
+        color = RS.apply_custom_shading(color, gbuf, gbuf.tri_id, batch,
+                                        world, camera, lights, systems,
+                                        draw_ctx)
+        t_lit = RS.apply_custom_shading(t_lit, t_gbuf, t_gbuf.tri_id, batch,
+                                        world, camera, lights, systems,
+                                        draw_ctx)
+    t_front = t_gbuf.covered() & (t_gbuf.depth <= gbuf.depth)
+    flags = gbuf.covered().to(torch.float32) + 2.0 * t_front.to(
         torch.float32)
-    ox = ((tids % tiles_x) * twd).to(torch.float32)
-    py = (oy[:, None, None] + torch.arange(th, dtype=torch.float32,
-                                           device=dev)[None, :, None]) + 0.5
-    px = (ox[:, None, None] + torch.arange(twd, dtype=torch.float32,
-                                           device=dev)[None, None, :]) + 0.5
-    return (px.expand(nt, th, twd).reshape(nt * th, twd),
-            py.expand(nt, th, twd).reshape(nt * th, twd))
+    packed = torch.cat([color, t_lit, t_extras["alpha"][..., None],
+                        flags[..., None]], dim=-1)
+    return compose(RP._untile_tall(packed, tiles_y, tiles_x, th, twd, h, w),
+                   background)
+
+
+def _texture_gbuffer(g, ex, atlas, bank, batch):
+    """The atlas on a non-fused G-buffer: the albedo, the spec, emissive
+    and dissolve maps' red channel as multipliers of ``ex``'s planes (in
+    place), and the normal map, in the winner triangle's tangent frame."""
+    mat_safe = g.material.clamp(0, bank.mat_textures.shape[0] - 1).long()
+    layer = bank.mat_texture[mat_safe]
+
+    def multiplier(table):
+        lay = table[mat_safe]
+        red = sample_atlas(atlas, lay, ex["uv"])[..., 0]
+        return torch.where(lay >= 0, red, 1.0)
+
+    if bank.has_specular_maps():
+        ex["specular"] = ex["specular"] * multiplier(bank.mat_texture_spec)
+    if bank.has_emissive_maps():
+        ex["emissive"] = ex["emissive"] * multiplier(bank.mat_texture_emis)
+    if bank.has_dissolve_maps():
+        ex["alpha"] = ex["alpha"] * multiplier(bank.mat_texture_diss)
+    normal = g.normal
+    if bank.has_normal_maps():
+        nlayer = bank.mat_texture_norm[mat_safe]
+        tri = g.tri_id.clamp(0, batch.budget - 1).long()
+        tan, handed = triangle_tangents(batch)
+        pert = perturb_normal(g.normal, tan[tri], handed[tri],
+                              sample_atlas(atlas, nlayer, ex["uv"]))
+        normal = torch.where((nlayer >= 0)[..., None], pert, g.normal)
+    return dataclasses.replace(
+        g, normal=normal,
+        albedo=torch.where((layer >= 0)[..., None],
+                           sample_atlas(atlas, layer, ex["uv"]), g.albedo))
 
 
 def _texture_override(res, atlas, tiles_x, th, twd, tids=None,
@@ -259,7 +344,7 @@ def _texture_override(res, atlas, tiles_x, th, twd, tids=None,
     ch = res.reshape(a, nt * th, twd)
     if tids is None:
         tids = torch.arange(nt, device=res.device)
-    px, py = _tall_pixel_centers(tids, tiles_x, th, twd)
+    px, py = RP._tall_pixel_centers(tids, tiles_x, th, twd)
 
     x0, y0, x1, y1, x2, y2 = ch[0], ch[1], ch[2], ch[3], ch[4], ch[5]
     l0 = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)
@@ -475,8 +560,8 @@ def _fused_custom_shading(shaded, s, d, wn, rows, tri_sys, camera, lights,
     wn_t = wn.reshape(nt * th, twd)
     # pixel centers: the barycentrics take the band-local y (a band of rows
     # rasters with y-shifted triangles), the unprojection the global row
-    px, py = _tall_pixel_centers(torch.arange(nt, device=s.device), tiles_x,
-                                 th, twd)
+    px, py = RP._tall_pixel_centers(torch.arange(nt, device=s.device),
+                                    tiles_x, th, twd)
     gbuf, extras = RP._gbuffer_from_channels(
         ch, d_t, wn_t, h_total, width, T.inv44(camera.proj_view()), px=px,
         py=py, ndc_py=py + float(y_off))

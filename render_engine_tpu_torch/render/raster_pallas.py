@@ -18,6 +18,11 @@ Kernel contracts (unchanged from the JAX package):
   layer or (``two_pass``) opaque and transparent layers.
 * K2 ``resolve_attributes(slot (TB,th,tw) i32, rows (TB,K,A) f32)``:
   ``out[a, t, y, x] = rows[t, slot[t, y, x], a]``, 0 where slot < 0.
+
+``gbuffers_tall`` joins them into the non-fused frame's G-buffers (one
+binning, one K1 launch, K2 over every tile of each layer) in the tall tile
+layout, with the shading planes that path hands ``lighting.shade``;
+``render_gbuffers_pallas`` untiles them to the image.
 """
 
 from __future__ import annotations
@@ -379,8 +384,31 @@ def _launch(batch, height, width, cfg, tri_class, two_pass, cand=None,
 
 
 def _untile(a, tiles_y, tiles_x, th, tw, height, width):
-    a = a.reshape(tiles_y, tiles_x, th, tw).permute(0, 2, 1, 3)
-    return a.reshape(tiles_y * th, tiles_x * tw)[:height, :width]
+    """(NT, th, tw) tiles -> (height, width) image rows."""
+    return _untile_tall(a.reshape(-1, tw), tiles_y, tiles_x, th, tw, height,
+                        width)
+
+
+def _untile_tall(a, tiles_y, tiles_x, th, tw, height, width):
+    """The tall tile layout (NT * th, tw, ...) -> (height, width, ...)."""
+    rest = a.shape[2:]
+    a = a.reshape(tiles_y, tiles_x, th, tw, *rest).transpose(1, 2)
+    return a.reshape(tiles_y * th, tiles_x * tw, *rest)[:height, :width]
+
+
+def _tall_pixel_centers(tids, tiles_x, th, twd):
+    """Pixel-center (px, py), each (NT * th, tw) float32, of the tiles
+    ``tids`` in the tall layout (tile after tile, band-local rows)."""
+    nt, dev = tids.shape[0], tids.device
+    oy = (torch.div(tids, tiles_x, rounding_mode="floor") * th).to(
+        torch.float32)
+    ox = ((tids % tiles_x) * twd).to(torch.float32)
+    py = (oy[:, None, None] + torch.arange(th, dtype=torch.float32,
+                                           device=dev)[None, :, None]) + 0.5
+    px = (ox[:, None, None] + torch.arange(twd, dtype=torch.float32,
+                                           device=dev)[None, None, :]) + 0.5
+    return (px.expand(nt, th, twd).reshape(nt * th, twd),
+            py.expand(nt, th, twd).reshape(nt * th, twd))
 
 
 def rasterize_depth_winner_pallas(batch: TriangleBatch, height: int,
@@ -517,3 +545,81 @@ def _gbuffer_from_channels(ch, depth, winner, height, width, inv_proj_view,
         extras["tangent"] = torch.stack([ch[55], ch[56], ch[57]], dim=-1)
         extras["tangent_w"] = ch[58]
     return gbuf, extras
+
+
+def _shading_planes(ch, winner, spec_packed=False):
+    """The per-pixel planes ``lighting.shade`` takes from K2's channels on
+    the non-fused path: ``emissive`` (0 where empty), ``alpha`` (1),
+    ``specular`` (1) and, for packed (spec, Ns) rows, ``shininess``
+    (``DEFAULT_SHININESS``). Kept apart from ``_gbuffer_from_channels``:
+    custom shading on the fused path reads none of them."""
+    from render_engine_tpu_torch.models.bank import (DEFAULT_SHININESS,
+                                                     unpack_spec_shin)
+
+    covered = winner >= 0
+    if spec_packed:
+        spec, shin = unpack_spec_shin(ch[34])
+    else:
+        spec, shin = ch[34], None
+    planes = {"emissive": torch.where(covered, ch[32], 0.0),
+              "alpha": torch.where(covered, ch[33], 1.0),
+              "specular": torch.where(covered, spec, 1.0)}
+    if shin is not None:
+        planes["shininess"] = torch.where(covered, shin, DEFAULT_SHININESS)
+    return planes
+
+
+def gbuffers_tall(batch: TriangleBatch, bank, height: int, width: int,
+                  cfg, inv_proj_view, ent_attrs=None):
+    """The non-fused frame's G-buffers in the tall tile layout (NT * th,
+    tw): one binning, one two-pass K1 launch and K2 over every tile of each
+    layer. ``(gbuf, extras, t_gbuf, t_extras)``, each ``extras`` holding
+    ``uv`` and the shading planes (``_shading_planes``). Positions
+    unproject through ``inv_proj_view``; ``ent_attrs`` are the render
+    systems' per-entity rows, folded into the triangles' rows."""
+    th, tw = cfg.tile_h, cfg.tile_w
+    tiles_x, tiles_y = -(-width // tw), -(-height // th)
+    nt = tiles_x * tiles_y
+    tri_class = _tri_class(batch)
+    cand, counts = _candidate_table(batch, cfg, tiles_x, tiles_y, tri_class)
+    rows = _gather_candidate_rows(
+        _packed_tri_table(batch, bank, tri_class, ent_attrs=ent_attrs), cand)
+    d, w, s, td, twi, ts = _launch(batch, height, width, cfg, tri_class,
+                                   two_pass=True, cand=cand, counts=counts)
+    px, py = _tall_pixel_centers(torch.arange(nt, device=batch.xy.device),
+                                 tiles_x, th, tw)
+    spk = bank.uniform_shininess() is None
+    out = []
+    for depth, winner, slot in ((d, w, s), (td, twi, ts)):
+        ch = resolve_attributes_pallas(slot, rows).reshape(-1, nt * th, tw)
+        winner = winner.reshape(nt * th, tw)
+        gbuf, extras = _gbuffer_from_channels(
+            ch, depth.reshape(nt * th, tw), winner, height, width,
+            inv_proj_view, px=px, py=py)
+        out += [gbuf, {**extras, **_shading_planes(ch, winner, spk)}]
+    return tuple(out)
+
+
+def render_gbuffers_pallas(batch: TriangleBatch, bank, height: int,
+                           width: int, cfg=RasterConfig(), proj_view=None):
+    """``gbuffers_tall`` untiled to the image: ``(gbuf, extras, t_gbuf,
+    t_extras)`` of (H, W) planes. Positions unproject through
+    ``proj_view``'s inverse (the identity when None)."""
+    if proj_view is None:
+        inv_pv = torch.eye(4, dtype=torch.float32, device=batch.xy.device)
+    else:
+        from render_engine_tpu_torch.math import transforms as T
+
+        inv_pv = T.inv44(proj_view)
+    tiles = (-(-height // cfg.tile_h), -(-width // cfg.tile_w), cfg.tile_h,
+             cfg.tile_w, height, width)
+    out = []
+    for i, part in enumerate(gbuffers_tall(batch, bank, height, width, cfg,
+                                           inv_pv)):
+        if i % 2:
+            out.append({k: _untile_tall(v, *tiles) for k, v in part.items()})
+        else:
+            out.append(dataclasses.replace(part, **{
+                f.name: _untile_tall(getattr(part, f.name), *tiles)
+                for f in dataclasses.fields(part)}))
+    return tuple(out)
