@@ -52,8 +52,13 @@ Phases (any failure exits non-zero; no phase catches its own):
              plain version (1e-5) and the loop over every light (equal); the
              frame at budget 96 against budget 0 (torch.equal while
              light_tile_overflow is 0); all 14 drop counters 0; launches a
-             frame; times of K3 with lists and dense, of select_tile_lights,
-             and ms/frame in turns budget 0, 96, 96, 0.
+             frame; K3's items a tile and a block and its critical path
+             (the most light iterations of one thread) with one block a
+             tile and with a block for every 256 pixels; K3 with every
+             pixel covered in both layers and 96-entry lists against its
+             plain version (1e-5); times of K3 with lists, dense and all
+             covered (in turns with --earlier), of select_tile_lights, and
+             ms/frame in turns budget 0, 96, 96, 0.
   8. custom  the 1080p/10k engine again with a fragment-shading function on
              the lit system and a draw callback on the light sources: K2
              over every tile (twice a frame, 531 MB a launch) against its
@@ -169,6 +174,7 @@ N_POINT_LIGHTS, LIGHT_TILE_BUDGET = 256, 96
 BUDGET_TURNS = (0, LIGHT_TILE_BUDGET, LIGHT_TILE_BUDGET, 0) * 3
 SHADE_TURNS = ("without", "with", "with", "without") * 3
 TCOUNT_BINS = (0, 1, 9, 17, 33, 49, 65, 81, 97)
+ITEM_BINS = (0, 1, 33, 129, 257, 513, 1025, 2049)  # K3 items a tile / block
 GOLDEN = dict(width=256, height=144, capacity=256, num_asteroids=64,
               max_tris=8192)
 # phase 10: frame counts of the benchmark configurations (their scene
@@ -365,14 +371,18 @@ def kernel_ms(name, kern, earlier):
     return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
 
 
+def histogram(counts, bins):
+    """'[lo,hi): n, ...' over consecutive bin edges."""
+    return ", ".join(
+        f"[{lo},{hi}): {int(((counts >= lo) & (counts < hi)).sum())}"
+        for lo, hi in zip(bins, bins[1:]))
+
+
 def live_histogram(counts, k, tile_budget, trans_budget):
     from render_engine_tpu_torch import kernel_bounds as KB
 
     per_tile = KB.k1_live(counts, k, tile_budget, trans_budget).sum(1)
-    bins = [int(((per_tile >= lo) & (per_tile < hi)).sum())
-            for lo, hi in zip(LIVE_BINS, LIVE_BINS[1:])]
-    return ", ".join(f"[{lo},{hi}): {n}" for lo, hi, n in
-                     zip(LIVE_BINS, LIVE_BINS[1:], bins)) + (
+    return histogram(per_tile, LIVE_BINS) + (
         f"; max {int(per_tile.max())}, mean {float(per_tile.double().mean()):.1f}")
 
 
@@ -1140,7 +1150,51 @@ def build_lights_engine():
     return eng
 
 
-def phase_lights():
+def k3_paths(label, a3, kw3):
+    """Log K3's items a tile and a block (max and histogram) and its
+    critical path, the most light iterations one thread runs:
+    max ceil(items / threads) x n_iter over blocks of 256 threads that own
+    a whole tile (the design before the split) and over the kernel's
+    blocks (kernel_bounds.fused_shade_work's critical_path)."""
+    from render_engine_tpu_torch import kernel_bounds as KB
+    from render_engine_tpu_torch.render import shade_pallas as SP
+
+    rows, s_o, s_t, d_o, d_t, ltab, lcount = a3[:7]
+    work = KB.fused_shade_work(*a3, **kw3)
+    per_tile = SP.shade_work_list(s_o, s_t, d_o, d_t)[2].long()
+    per_block = SP.shade_block_items(s_o, s_t)[1]
+    _, n_iter = SP.staged_light_rows(ltab, lcount, rows.shape[0],
+                                     kw3["tlist"], kw3["tcount"])
+    before = int((((per_tile + 255) // 256) * n_iter.long()).max())
+    log(f"[lights] K3 {label}: items a tile max {work['items_max_tile']} ("
+        + histogram(per_tile, ITEM_BINS) + f"); a block max "
+        f"{work['items_max_block']} (" + histogram(per_block, ITEM_BINS)
+        + f"); critical path {before} light iterations with a tile a "
+        f"block, {work['critical_path']} with {SP.BLOCK_PIXELS} pixels a "
+        f"block ("
+        f"{before / max(work['critical_path'], 1):.2f} times shorter)")
+
+
+def synthetic_lists(a3, kw3, seed):
+    """K3 on the many-lights frame's inputs with every pixel covered in
+    both layers (synthetic_k3) and full lists: each tile 96 distinct live
+    rows of the 268-row table, ascending."""
+    import numpy as np
+    import torch
+
+    args, kw = synthetic_k3(a3, kw3, True, seed)
+    rng = np.random.default_rng(seed)
+    nt, n_live = args[0].shape[0], int(args[6][0])
+    tl = np.sort(np.stack([rng.choice(n_live, LIGHT_TILE_BUDGET,
+                                      replace=False) for _ in range(nt)]),
+                 axis=1).astype(np.int32)
+    dev = args[0].device
+    return args, dict(kw, tlist=torch.from_numpy(tl).to(dev),
+                      tcount=torch.full((nt,), LIGHT_TILE_BUDGET,
+                                        dtype=torch.int32, device=dev))
+
+
+def phase_lights(earlier=None):
     """K3's tile-list branch on the many-lights frame. Returns the kernel
     record and the launches of the path's counted run."""
     import torch
@@ -1226,24 +1280,24 @@ def phase_lights():
     if tlist is None or tuple(tlist.shape) != (a3[0].shape[0],
                                                LIGHT_TILE_BUDGET):
         raise RuntimeError("K3 got no tile light lists")
-    bins = [int(((tcount >= lo) & (tcount < hi)).sum())
-            for lo, hi in zip(TCOUNT_BINS, TCOUNT_BINS[1:])]
     n_live = int(a3[6][0])
     log(f"[lights] K3 inputs: rows {tuple(a3[0].shape)}, ltab "
-        f"{tuple(a3[5].shape)} ({a3[5].numel() * 4} B of shared memory), "
-        f"{n_live} live lights, tlist {tuple(tlist.shape)}; tcount a tile: "
-        + ", ".join(f"[{lo},{hi}): {n}" for lo, hi, n in
-                    zip(TCOUNT_BINS, TCOUNT_BINS[1:], bins))
-        + f"; max {int(tcount.max())}, mean "
-        f"{float(tcount.double().mean()):.1f}; K3 blocks an SM with this "
-        f"table: {SP.blocks_per_sm(a3[5].shape[0])} (with the headline's 20 "
-        f"rows: {SP.blocks_per_sm(20)})")
+        f"{tuple(a3[5].shape)}, {n_live} live lights, tlist "
+        f"{tuple(tlist.shape)}; tcount a tile: "
+        + histogram(tcount, TCOUNT_BINS) + f"; max {int(tcount.max())}, mean "
+        f"{float(tcount.double().mean()):.1f}; K3 blocks an SM with room "
+        f"for {LIGHT_TILE_BUDGET} list rows: "
+        f"{SP.blocks_per_sm(LIGHT_TILE_BUDGET)}, for the "
+        f"{a3[5].shape[0]}-row table: {SP.blocks_per_sm(a3[5].shape[0])}, "
+        f"for the headline's 20 rows: {SP.blocks_per_sm(20)}")
     kw_dense = dict(kw3, tlist=None, tcount=None)
+    k3_paths("with lists", a3, kw3)
+    k3_paths(f"over all {n_live} lights", a3, kw_dense)
     rec = kernel_record(
         "fused_shade_tile_lists", 1e-5,
         lambda: [SP.shade_tiles(*a3, **kw3)],
         lambda: [SP.fused_shade_reference(*a3, **kw3)],
-        KB.fused_shade_work(*a3, **kw3), plain_reps=1)
+        KB.fused_shade_work(*a3, **kw3), earlier=earlier, plain_reps=1)
     out_l = SP.shade_tiles(*a3, **kw3)
     out_d = SP.shade_tiles(*a3, **kw_dense)
     if not torch.equal(out_l, out_d):
@@ -1252,7 +1306,15 @@ def phase_lights():
         f"fused_shade over all {n_live} lights", 1e-5,
         lambda: [SP.shade_tiles(*a3, **kw_dense)],
         lambda: [SP.fused_shade_reference(*a3, **kw_dense)],
-        KB.fused_shade_work(*a3, **kw_dense), plain_reps=1)
+        KB.fused_shade_work(*a3, **kw_dense), earlier=earlier, plain_reps=1)
+    a_syn, kw_syn = synthetic_lists(a3, kw3, 9)
+    k3_paths(f"all covered, {LIGHT_TILE_BUDGET}-entry lists", a_syn, kw_syn)
+    kernel_record(
+        f"synthetic K3 all covered, {LIGHT_TILE_BUDGET}-entry lists", 1e-5,
+        lambda: [SP.shade_tiles(*a_syn, **kw_syn)],
+        lambda: [SP.fused_shade_reference(*a_syn, **kw_syn)],
+        KB.fused_shade_work(*a_syn, **kw_syn), earlier=earlier,
+        plain_reps=1)
     sa, skw = sel.calls[0]
     select_ms = device_ms(lambda: SP.select_tile_lights(*sa, **skw), 20)
     select_host = cuda_ms(lambda: SP.select_tile_lights(*sa, **skw), 10)
@@ -1262,7 +1324,8 @@ def phase_lights():
         f"with its host cost {select_host:.3f} ms)")
     turns = turn_medians(eng, BUDGET_TURNS, start_turn, "lights", "budget ")
     rec.update(dense_ms=dense_rec["ms"], dense_bound_ms=dense_rec["bound_ms"],
-               dense_bound_by=dense_rec["bound_by"], select_ms=select_ms,
+               dense_bound_by=dense_rec["bound_by"],
+               dense_earlier_ms=dense_rec["earlier_ms"], select_ms=select_ms,
                tcount_max=int(tcount.max()),
                tcount_mean=float(tcount.double().mean()),
                ms_per_frame_budget_0=turns[0],
@@ -2104,7 +2167,7 @@ def main() -> int:
     rec_c, launches_c, frames_c = phase_custom(eng)
     del eng
     torch.cuda.empty_cache()
-    rec_l, launches_l, frames_l = phase_lights()
+    rec_l, launches_l, frames_l = phase_lights(earlier)
     phase_golden()
     phase_configs()
     # the two branch rows take their launches from their own phase's run

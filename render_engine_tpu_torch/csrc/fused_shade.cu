@@ -1,22 +1,36 @@
 // K3: the fused shade.
 //
 // Replaces render_engine_tpu/render/shade_pallas.py::_shade_kernel (run
-// through fused_shade). One block shades one screen tile in two passes.
+// through fused_shade). One launch a call. A block of 128 threads owns 256
+// consecutive pixels of one screen tile (two rows of an 8x128 tile), so a
+// tile is spread over ceil(th * tw / 256) blocks (grid nt x 4 at 8x128).
+// No atomic anywhere: blocks share nothing, and the outputs do not depend
+// on the order in which they run. Each block runs two passes.
 //
-// Pass A: each of the 256 threads reads the four slot / depth planes at its
-// pixels p = j * 256 + thread (j < 4; neighbouring lanes on neighbouring
-// addresses, so every load and store of a warp covers whole 128-byte
-// lines), writes plane 7 (flags: bit0 opaque covered, bit1 transparent in
-// front) and the constant values of every uncovered layer (rgb 0, and
-// alpha 1 on the transparent layer), and compacts the covered (pixel,
-// layer) items into a work list in shared memory: a warp ballot per row of
-// pixels and a scan over the block's warps, opaque items first, each layer
-// in pixel order (render/shade_pallas.py::shade_work_list mirrors it). A
-// tile with nothing covered ends there: in the black space scene most do.
+// Pass A: each thread reads the four slot / depth planes at its two pixels
+// p0 + j * 128 + thread, all eight loads before any store (neighbouring
+// lanes on neighbouring addresses, so every load and store of a warp
+// covers whole 128-byte lines), writes plane 7 (flags: bit0 opaque
+// covered, bit1 transparent in front) and the constant values of every
+// uncovered layer (rgb 0, and alpha 1 on the transparent layer), and
+// compacts the block's covered (pixel, layer) items into a work list in
+// shared memory: a warp ballot per pixel and layer and a scan over the
+// block's warps, opaque items first, each layer in pixel order
+// (render/shade_pallas.py::shade_block_items mirrors it). A block with
+// nothing covered ends there, before it copies anything: in the black
+// space scene most do.
+//
+// Staging: a block with work copies into shared memory the scene constants
+// (inverse proj-view, camera, pixel origin), its tile's slot -> factor-row
+// map, and the light rows its loop reads, in loop order: on the list route
+// row i is ltab[clamp(tlist[t, i], 0, nl - 1)], on the dense route ltab[i],
+// for i < n_iter (render/shade_pallas.py::staged_light_rows mirrors it),
+// with each row's skip cutoff (skip_cut). The loop reads row i with no
+// global load, as a broadcast.
 //
 // Pass B: the threads take the work list one item each, so every lane of a
-// warp runs a light loop, whichever pixels of the tile are covered. For its
-// item a thread:
+// warp runs a light loop, whichever pixels are covered. For its item a
+// thread:
 //   1. reads its winner's attribute row straight from `rows` (K2's
 //      resolve, done in place: the per-pixel channel images never exist);
 //   2. interpolates perspective-correct barycentrics, the normal
@@ -26,33 +40,43 @@
 //      dissolve deltas and the normal-mapped normal;
 //   4. unprojects its depth through the inverse proj-view (+ the buffer's
 //      global pixel origin) to a world position;
-//   5. runs Blinn-Phong over the live lights, or over the tile's culled
-//      light list: dir / point / spot, attenuation, radius cutoff, smooth
-//      spot cone, ndh^shin; on the opaque layer each light's per-slot PCF
-//      factors multiply in, picked through the inverse map inv[s, tile];
-//   6. applies the diffuse floor and the emissive bypass, and stores its
+//   5. on the opaque layer reads its PCF factor of each mapped shadow slot
+//      once, into its own column of shared memory;
+//   6. runs Blinn-Phong over the staged rows in order: dir / point / spot,
+//      attenuation, radius cutoff, smooth spot cone, ndh^shin, and on the
+//      opaque layer each owned and mapped slot's factor; a light that its
+//      radius cuts off adds exactly +-0 where the values are bounded, and
+//      the lane passes over it (skip_cut);
+//   7. applies the diffuse floor and the emissive bypass, and stores its
 //      layer's planes.
 // Output (8, NT, th, tw) = [lit rgb | t_lit rgb | alpha | flags]; every
 // element is written once, by pass A or by pass B.
 //
-// What bounds it on an H100: memory, at the frame's shapes: 48 bytes a
-// pixel of planes in and out, against about 60 float operations per
-// covered item and light. The old design walked 4 pixels a thread one after
-// another and ran the light loop for a warp with one covered lane while 31
-// idled, twice (one inlined copy per layer); the work list keeps the lanes
-// busy and instantiates one layer's shade once. The light table and the
-// scene constants (inverse proj-view, camera, origin) sit in shared memory,
-// read as broadcasts. The attribute rows are read through L1: a warp's
-// items are neighbouring pixels, mostly of one triangle, so its loads of a
-// channel hit the same few lines.
+// What bounds it on an H100. The planes move 48 bytes a pixel; the light
+// loop costs a few hundred instructions per covered item and light (IEEE
+// divisions, sqrtf, powf), a chain of dependent steps. On the many-lights
+// scene about 2% of the pixels are covered, in the few tiles a large
+// object covers: the kernel lasts as long as its busiest blocks' loops.
+// So a busy tile's items are spread over four blocks, and over SMs (a
+// block that owned the whole tile would run up to 2048 items on one SM);
+// the loop reads no global memory; and a light that its radius cuts off
+// at the pixel costs the lane a distance test instead of the loop body. What
+// remains is the busiest blocks' loop on a few warps an SM, whose latency
+// nothing hides; overlapping two lights a thread was measured slower
+// (PERF.md). Where the loop is short, as on the headline, pass A's memory
+// traffic bounds the kernel: two pixels a thread keep twice the loads in
+// flight. Blocks without work copy nothing, and a list block stages its lb
+// rows, not the table (96 rows, 11,136 B with cutoffs, on the many-lights
+// scene, against 30,016 B for the whole table).
 //
 // Rounding: the library is built with -fmad=false and every expression
 // keeps the reference's order of operations, so the kernel follows the
 // plain PyTorch version op for op, as PyTorch computes it on the card:
 // rsqrt from rsqrtf, powf, and the NDC terms' division by the buffer size
-// as a multiplication by its reciprocal. Against the JAX reference and the
-// plain version on the CPU these differ in the last bits, which the
-// specular exponent amplifies: hence the 1e-5 tolerance.
+// as a multiplication by its reciprocal. Each item sums its lights from
+// the first up; skipping a light that adds +-0 changes no bit. Against the
+// JAX reference and the plain version on the CPU these differ in the last
+// bits, which the specular exponent amplifies: hence the 1e-5 tolerance.
 
 #include "common.cuh"
 
@@ -60,9 +84,22 @@ namespace rek {
 namespace {
 
 constexpr int kLCol = 28;  // packed light-table row width (shade_pallas.py)
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxItems = 2 * kThreads * kMaxPix;
+constexpr int kMaxSlots = kLCol - 21;  // shadow-slot ownership columns
+constexpr int kBlock = 128;               // threads a block
+constexpr int kBlocksPerSm = 8;           // at most 64 registers a thread
+constexpr int kWarps = kBlock / 32;
+constexpr int kPixA = 2;                // pixels a thread in pass A
+constexpr int kChunk = kBlock * kPixA;  // pixels a block owns
+constexpr int kMaxItems = 2 * kChunk;
 constexpr int kScene = 21;  // ipv (16), camera (3), pixel origin (2)
+
+// The bounds under which a light cut off by its radius adds exactly +-0
+// (see skip_cut)
+constexpr float kFinite = 3.4028235e38f;   // FLT_MAX
+constexpr float kPos = 1.152921504606847e18f;  // 2^60: positions, cone
+constexpr float kColor = 1.099511627776e12f;   // 2^40: colours, spec
+constexpr float kShin = 65536.0f;              // 2^16: the exponent
+constexpr float kNormal2 = 1.00048828125f;     // 1 + 2^-11: |n|^2
 
 struct ShadeArgs {
   const float* rows;  // (nt, k, a)
@@ -87,12 +124,64 @@ struct ShadeArgs {
   float shin_const, diffuse_floor;
 };
 
+__device__ __forceinline__ bool within(float x, float b) {
+  return fabsf(x) <= b;  // false for NaN
+}
+
+// Skipping lights. A light whose radius cuts an item off (radius > 0 and
+// d > radius) has attenuation 0. Where the light's and the item's values
+// are bounded (skip_cut, item_bounded) the rest of its terms are finite:
+// the spot intensity lies in [0, 1], ndh below 1.0003 (|n| <= 1.00025),
+// ndh^shin below 1e7 (shin <= 2^16), each colour term below 2^80 and the
+// specular one below 2^112. The light's contribution s * (...) is then
+// +-0, and a sum that starts at +0 and so never becomes -0 stays as it is:
+// the loop may pass over the light and every output bit stays the same.
+// render/shade_pallas.py::shade_skip_cut and shade_skip_item mirror the
+// bounds, and tests hold the plain version to them.
+
+// A staged row's cutoff: its radius where its values are bounded (kPos
+// for the position and the cone, 2 for the direction, kColor for the
+// colours), else +inf (never skipped).
+__device__ float skip_cut(const float* L) {
+  bool ok = L[20] > 0.0f && within(L[20], kFinite);
+  for (int c = 1; c <= 3; ++c) ok = ok && within(L[c], kPos);
+  for (int c = 4; c <= 6; ++c) ok = ok && within(L[c], 2.0f);
+  for (int c = 7; c <= 15; ++c) ok = ok && within(L[c], kColor);
+  ok = ok && within(L[18], kPos) && within(L[19], kPos);
+  return ok ? L[20] : __int_as_float(0x7f800000);
+}
+
+// Whether a bounded item at (wx, wy, wz) skips staged light L with cutoff
+// rc (skip_cut); d is the loop's own d.
+__device__ __forceinline__ bool skips(const float* L, float rc, float wx,
+                                      float wy, float wz) {
+  const float tx = L[1] - wx, ty = L[2] - wy, tz = L[3] - wz;
+  return sqrtf(max_nan((tx * tx + ty * ty) + tz * tz, 1e-18f)) > rc;
+}
+
+// Whether an item's values are bounded: world position within kPos, view
+// vector within 2, |n|^2 within kNormal2, albedo and spec strength within
+// kColor, exponent in [0, kShin]. (Its PCF factors must be finite too.)
+__device__ bool item_bounded(float wx, float wy, float wz, float vx, float vy,
+                             float vz, float nx, float ny, float nz, float ar,
+                             float ag, float ab, float spec_k, float shin) {
+  return within(wx, kPos) && within(wy, kPos) && within(wz, kPos) &&
+         within(vx, 2.0f) && within(vy, 2.0f) && within(vz, 2.0f) &&
+         (nx * nx + ny * ny) + nz * nz <= kNormal2 && within(ar, kColor) &&
+         within(ag, kColor) && within(ab, kColor) && within(spec_k, kColor) &&
+         shin >= 0.0f && shin <= kShin;
+}
+
 // One covered item: pixel p of tile t on `layer` (0 opaque, 1 transparent):
 // the body of the reference's shade_layer for a single pixel centre.
-// `sl` is the light table, `sc` the scene constants, both in shared memory.
+// `sl` holds the n_iter staged light rows and `cut` their skip cutoffs
+// (skip_cut), `sc` the scene constants, `sinv` the tile's factor row of
+// each slot, all in shared memory; `fac` is this thread's column of
+// factors (stride kBlock).
 __device__ void shade_item(const ShadeArgs& A, const float* sl,
-                           const float* sc, int t, int p, int layer,
-                           int n_iter) {
+                           const float* cut, const float* sc,
+                           const int* sinv, float* fac, int t, int p,
+                           int layer, int n_iter) {
   const int npx = A.th * A.tw;
   const size_t pix = static_cast<size_t>(t) * npx + p;
   const int slot = layer ? A.s_t[pix] : A.s_o[pix];
@@ -173,45 +262,64 @@ __device__ void shade_item(const ShadeArgs& A, const float* sl,
   vx = vx * vl;
   vy = vy * vl;
   vz = vz * vl;
-  // --- Blinn-Phong over the lights ---
+  // --- whether the loop may skip lights (item_bounded), and the item's PCF
+  // factors, once: slot q applies where it is mapped (the tile has a
+  // factor row) and the light owns it ---
+  bool safe = item_bounded(wx, wy, wz, vx, vy, vz, nx, ny, nz, ar, ag, ab,
+                           spec_k, shin);
+  if (use_shadows) {
+    for (int q = 0; q < A.n_slots; ++q) {
+      if (sinv[q] >= 0) {
+        const float f =
+            A.sf[(static_cast<size_t>(q) * A.tb + sinv[q]) * npx + p];
+        fac[q * kBlock] = f;
+        safe = safe && fabsf(f) <= kFinite;
+      }
+    }
+  }
+  // --- Blinn-Phong over the staged lights, in order. Each lane first
+  // passes over the lights that skip (see skip_cut: each adds exactly +-0
+  // to the sums), on its own, then the warp shades each lane's next light
+  // together ---
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
 #pragma unroll 1
-  for (int i = 0; i < n_iter; ++i) {
-    int li = i;
-    if (A.tlist != nullptr) {
-      li = A.tlist[static_cast<size_t>(t) * A.lb + i];
-      li = min(max(li, 0), A.nl - 1);
+  for (int i = 0;; ++i) {
+    while (i < n_iter && safe && skips(sl + i * kLCol, cut[i], wx, wy, wz)) {
+      ++i;
     }
-    const float* L = sl + li * kLCol;
-    const float kind = L[0];
+    if (i >= n_iter) break;
+    const float* L = sl + i * kLCol;
     const float tx = L[1] - wx, ty = L[2] - wy, tz = L[3] - wz;
     const float d2 = (tx * tx + ty * ty) + tz * tz;
     const float d = sqrtf(max_nan(d2, 1e-18f));
+    const float kind = L[0];
     const float invd = 1.0f / d;
     const bool is_dir = kind < 0.5f;
     const float lx = is_dir ? -L[4] : tx * invd;
     const float ly = is_dir ? -L[5] : ty * invd;
     const float lz = is_dir ? -L[6] : tz * invd;
-    float atten = is_dir ? 1.0f : 1.0f / ((1.0f + L[16] * d) + L[17] * d2);
+    float atten = 1.0f;
+    if (!is_dir) atten = 1.0f / ((1.0f + L[16] * d) + L[17] * d2);
     const float radius = L[20];
     if (radius > 0.0f && d > radius) atten = 0.0f;
-    const float cos_t = -((lx * L[4] + ly * L[5]) + lz * L[6]);
-    const float eps = max_nan(L[18] - L[19], 1e-6f);
-    const float spot_i = clamp_nan((cos_t - L[19]) / eps, 0.0f, 1.0f);
-    const float intensity = kind > 1.5f ? spot_i : 1.0f;
+    float intensity = 1.0f;
+    if (kind > 1.5f) {
+      const float cos_t = -((lx * L[4] + ly * L[5]) + lz * L[6]);
+      const float eps = max_nan(L[18] - L[19], 1e-6f);
+      intensity = clamp_nan((cos_t - L[19]) / eps, 0.0f, 1.0f);
+    }
     const float ndl = max_nan((nx * lx + ny * ly) + nz * lz, 0.0f);
     const float hx = lx + vx, hy = ly + vy, hz = lz + vz;
     const float hl = rsqrt_pt(max_nan((hx * hx + hy * hy) + hz * hz, 1e-24f));
     const float ndh = max_nan(((nx * hx + ny * hy) + nz * hz) * hl, 0.0f);
-    const float spec = (ndl > 0.0f ? powf(ndh, shin) : 0.0f) * spec_k;
+    float pw = 0.0f;
+    if (ndl > 0.0f) pw = powf(ndh, shin);
+    const float spec = pw * spec_k;
     float s = atten * intensity;
     if (use_shadows) {
       for (int q = 0; q < A.n_slots; ++q) {
-        const int inv = A.sfi[static_cast<size_t>(q) * A.nt + t];
-        const float mapped = inv >= 0 ? 1.0f : 0.0f;
-        if (L[21 + q] * mapped > 0.5f) {
-          s = s * A.sf[(static_cast<size_t>(q) * A.tb + max(inv, 0)) * npx + p];
-        }
+        const float mapped = sinv[q] >= 0 ? 1.0f : 0.0f;
+        if (L[21 + q] * mapped > 0.5f) s = s * fac[q * kBlock];
       }
     }
     cr = cr + s * ((L[13] * ar + (L[7] * ndl) * ar) + L[10] * spec);
@@ -240,33 +348,46 @@ __device__ void shade_item(const ShadeArgs& A, const float* sl,
   }
 }
 
-// 4 blocks of 256 threads an SM (64 registers a thread): pass A keeps 16 KB
-// of plane loads in flight an SM, several times what the memory's latency
-// needs; pass B's light loop needs the registers.
-__global__ void __launch_bounds__(kThreads, 4) fused_shade_kernel(ShadeArgs A) {
-  extern __shared__ float sl[];  // (nl, kLCol) light table
+// 8 blocks of 128 threads an SM (64 registers a thread): the light loop
+// needs the registers, so pass A keeps its loads in flight by issuing all
+// kPixA pixels' loads before any store.
+__global__ void __launch_bounds__(kBlock, kBlocksPerSm)
+    fused_shade_kernel(ShadeArgs A) {
+  // the staged light rows (n_rows, kLCol), then their cutoffs (n_rows,)
+  extern __shared__ float sl[];
   __shared__ float sc[kScene];
+  __shared__ int sinv[kMaxSlots];
+  __shared__ float fac[kMaxSlots * kBlock];
   __shared__ short items[kMaxItems];
-  __shared__ int wcount[kMaxPix][2][kWarps];
-  const int t = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __shared__ int wcount[kPixA][2][kWarps];
   const int npx = A.th * A.tw;
+  const int n_chunks = (npx + kChunk - 1) / kChunk;
+  const int t = blockIdx.x / n_chunks;
+  const int p0 = (blockIdx.x - t * n_chunks) * kChunk;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t base = static_cast<size_t>(t) * npx;
   const size_t plane = static_cast<size_t>(A.nt) * npx;
 
-  // --- pass A: flags, uncovered layers, ballots ---
-  unsigned bal[kMaxPix][2];
+  // --- pass A: flags, uncovered layers, ballots; pixel p0 + j * kBlock
+  // + thread ---
+  int so[kPixA], st[kPixA];
+  float dop[kPixA], dtp[kPixA];
 #pragma unroll
-  for (int j = 0; j < kMaxPix; ++j) {
-    const int p = j * kThreads + threadIdx.x;
+  for (int j = 0; j < kPixA; ++j) {
+    const int p = p0 + j * kBlock + threadIdx.x;
     const bool in = p < npx;
-    const int so = in ? A.s_o[base + p] : -1;
-    const int st = in ? A.s_t[base + p] : -1;
-    const float dop = in ? A.d_o[base + p] : 1.0f;
-    const float dtp = in ? A.d_t[base + p] : 1.0f;
-    const bool cov_o = so >= 0, cov_t = st >= 0;
-    if (in) {
-      const bool t_front = cov_t && (dtp <= dop);
+    so[j] = in ? A.s_o[base + p] : -1;
+    st[j] = in ? A.s_t[base + p] : -1;
+    dop[j] = in ? A.d_o[base + p] : 1.0f;
+    dtp[j] = in ? A.d_t[base + p] : 1.0f;
+  }
+  unsigned bal[kPixA][2];
+#pragma unroll
+  for (int j = 0; j < kPixA; ++j) {
+    const int p = p0 + j * kBlock + threadIdx.x;
+    const bool cov_o = so[j] >= 0, cov_t = st[j] >= 0;
+    if (p < npx) {
+      const bool t_front = cov_t && (dtp[j] <= dop[j]);
       float* out = A.out + base + p;
       out[7 * plane] = (cov_o ? 1.0f : 0.0f) + 2.0f * (t_front ? 1.0f : 0.0f);
       if (!cov_o) {
@@ -288,24 +409,14 @@ __global__ void __launch_bounds__(kThreads, 4) fused_shade_kernel(ShadeArgs A) {
       wcount[j][1][warp] = __popc(bal[j][1]);
     }
   }
-  for (int i = threadIdx.x; i < A.nl * kLCol; i += blockDim.x) {
-    sl[i] = A.ltab[i];
-  }
-  if (threadIdx.x < 16) {
-    sc[threadIdx.x] = A.ipv[threadIdx.x];
-  } else if (threadIdx.x < 19) {
-    sc[threadIdx.x] = A.cam[threadIdx.x - 16];
-  } else if (threadIdx.x < kScene) {
-    sc[threadIdx.x] = A.org[threadIdx.x - 19];
-  }
   __syncthreads();
 
   // --- the work list: item p (opaque) or npx + p (transparent), opaque
   // items first, each layer in pixel order, i.e. in (j, warp, lane) order
-  int before[kMaxPix][2];
+  int before[kPixA][2];
   int total[2] = {0, 0};
 #pragma unroll
-  for (int j = 0; j < kMaxPix; ++j) {
+  for (int j = 0; j < kPixA; ++j) {
 #pragma unroll
     for (int l = 0; l < 2; ++l) before[j][l] = total[l];
     for (int w = 0; w < kWarps; ++w) {
@@ -318,8 +429,8 @@ __global__ void __launch_bounds__(kThreads, 4) fused_shade_kernel(ShadeArgs A) {
   }
   const unsigned below = (1u << lane) - 1u;
 #pragma unroll
-  for (int j = 0; j < kMaxPix; ++j) {
-    const int p = j * kThreads + threadIdx.x;
+  for (int j = 0; j < kPixA; ++j) {
+    const int p = p0 + j * kBlock + threadIdx.x;
 #pragma unroll
     for (int l = 0; l < 2; ++l) {
       if ((bal[j][l] >> lane) & 1u) {
@@ -329,17 +440,51 @@ __global__ void __launch_bounds__(kThreads, 4) fused_shade_kernel(ShadeArgs A) {
     }
   }
   const int n_items = total[0] + total[1];
-  if (n_items == 0) return;  // uniform: nothing covered in the tile
+  if (n_items == 0) return;  // uniform: nothing covered in the block
+
+  // --- staging: scene constants, the slot map, the loop's light rows and
+  // their cutoffs ---
+  const bool listed = A.tlist != nullptr;
+  const int n_rows = listed ? A.lb : A.nl;
+  int n_iter = listed ? A.tcount[t] : A.lcount[0];
+  n_iter = min(max(n_iter, 0), n_rows);
+  auto row = [&](int i) {
+    const int li =
+        listed ? A.tlist[static_cast<size_t>(t) * A.lb + i] : i;
+    return A.ltab + min(max(li, 0), A.nl - 1) * kLCol;
+  };
+  for (int e = threadIdx.x; e < n_iter * kLCol; e += kBlock) {
+    const int i = e / kLCol;
+    sl[e] = row(i)[e - i * kLCol];
+  }
+  float* cut = sl + n_rows * kLCol;
+  for (int i = threadIdx.x; i < n_iter; i += kBlock) {
+    cut[i] = skip_cut(row(i));
+  }
+  if (threadIdx.x < 16) {
+    sc[threadIdx.x] = A.ipv[threadIdx.x];
+  } else if (threadIdx.x < 19) {
+    sc[threadIdx.x] = A.cam[threadIdx.x - 16];
+  } else if (threadIdx.x < kScene) {
+    sc[threadIdx.x] = A.org[threadIdx.x - 19];
+  } else if (threadIdx.x >= 32 && threadIdx.x < 32 + A.n_slots) {
+    const int q = threadIdx.x - 32;
+    sinv[q] = A.sfi[static_cast<size_t>(q) * A.nt + t];
+  }
   __syncthreads();
 
   // --- pass B: one item a thread ---
-  int n_iter = A.tlist != nullptr ? A.tcount[t] : A.lcount[0];
-  n_iter = min(max(n_iter, 0), A.tlist != nullptr ? A.lb : A.nl);
-  for (int i = threadIdx.x; i < n_items; i += blockDim.x) {
+  for (int i = threadIdx.x; i < n_items; i += kBlock) {
     const int it = items[i];
     const int layer = it >= npx ? 1 : 0;
-    shade_item(A, sl, sc, t, it - layer * npx, layer, n_iter);
+    shade_item(A, sl, cut, sc, sinv, fac + threadIdx.x, t, it - layer * npx,
+               layer, n_iter);
   }
+}
+
+// dynamic shared memory for n_rows staged rows and their cutoffs
+size_t staged_bytes(int n_rows) {
+  return static_cast<size_t>(n_rows) * (kLCol + 1) * sizeof(float);
 }
 
 }  // namespace
@@ -357,7 +502,7 @@ extern "C" int launch_fused_shade(
     int with_diss, int spec_packed, float shin_const, float diffuse_floor,
     cudaStream_t stream) {
   if (th * tw > rek::kThreads * rek::kMaxPix || a < 35 || nl < 1 ||
-      n_slots > rek::kLCol - 21) {
+      n_slots > rek::kMaxSlots || (tlist != nullptr && lb < 1)) {
     return cudaErrorInvalidValue;
   }
   if (nt == 0) return cudaSuccess;
@@ -366,22 +511,27 @@ extern "C" int launch_fused_shade(
                       nt, k, a, tiles_x, th, tw, n_slots, tb, lb, nl,
                       width, height, ovr_chans, with_norm, with_diss,
                       spec_packed, shin_const, diffuse_floor};
-  const size_t smem = static_cast<size_t>(nl) * rek::kLCol * sizeof(float);
+  // room for the most rows a block can stage: the list length or the table
+  const size_t smem = rek::staged_bytes(tlist != nullptr ? lb : nl);
   cudaError_t err = rek::allow_smem(rek::fused_shade_kernel, smem);
   if (err != cudaSuccess) return err;
-  rek::fused_shade_kernel<<<nt, rek::kThreads, smem, stream>>>(args);
+  const int n_chunks = (th * tw + rek::kChunk - 1) / rek::kChunk;
+  rek::fused_shade_kernel<<<nt * n_chunks, rek::kBlock, smem, stream>>>(
+      args);
   return cudaGetLastError();
 }
 
-// Blocks of the kernel that one SM holds at once with a light table of `nl`
-// rows in dynamic shared memory (the CUDA occupancy calculator's answer for
-// this build's registers and static shared memory), or -1 on an error.
-extern "C" int fused_shade_blocks_per_sm(int nl) {
-  const size_t smem = static_cast<size_t>(nl) * rek::kLCol * sizeof(float);
+// Blocks of the kernel that one SM holds at once with room for `n_rows`
+// staged light rows in dynamic shared memory (the list length on the list
+// route, the table's rows on the dense route): the CUDA occupancy
+// calculator's answer for this build's registers and static shared memory,
+// or -1 on an error.
+extern "C" int fused_shade_blocks_per_sm(int n_rows) {
+  const size_t smem = rek::staged_bytes(n_rows);
   if (rek::allow_smem(rek::fused_shade_kernel, smem) != cudaSuccess) return -1;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, rek::fused_shade_kernel, rek::kThreads, smem) !=
+          &blocks, rek::fused_shade_kernel, rek::kBlock, smem) !=
       cudaSuccess) {
     return -1;
   }

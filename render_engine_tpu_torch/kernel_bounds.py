@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from render_engine_tpu_torch.render import shade_pallas as SP
+
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 
@@ -32,6 +34,10 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_ops = ops / H100_F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _max(x):
+    return int(x.max()) if x.numel() else 0
 
 
 def k1_live(counts, k, tile_budget, trans_budget):
@@ -96,7 +102,12 @@ def fused_shade_work(rows, s_o, s_t, d_o, d_t, ltab, lcount, cam, ipv, org,
     """K3: the four slot / depth planes, the eight output planes, and for
     covered (pixel, layer) items only: their override values, the opaque
     items' slot-factor values of mapped tiles, and the 35 used floats of
-    each distinct referenced row; about 60 operations per (item, light)."""
+    each distinct referenced row; about 60 operations per (item, light).
+    Beside them the counts the light loop's critical path comes from:
+    the most items in a tile and in one of the kernel's blocks
+    (``shade_block_items``), the most (item, light) iterations of a tile,
+    and ``critical_path``, the most light iterations one thread of a block
+    runs: ceil(items / BLOCK_THREADS) x n_iter, the maximum over blocks."""
     nt, k, _a = rows.shape
     npx = s_o.shape[1] * s_o.shape[2]
     cov = torch.stack([s_o.reshape(nt, npx) >= 0,
@@ -108,6 +119,8 @@ def fused_shade_work(rows, s_o, s_t, d_o, d_t, ltab, lcount, cam, ipv, org,
     else:
         n_iter = lcount.long().clamp(0, ltab.shape[0]).expand(nt)
     ops = K3_OPS_PER_LIGHT * int((per_tile * n_iter).sum())
+    per_block = SP.shade_block_items(s_o, s_t)[1]  # (NT, NB)
+    rounds = (per_block.long() + SP.BLOCK_THREADS - 1) // SP.BLOCK_THREADS
     slots = torch.stack([s_o.reshape(nt, npx), s_t.reshape(nt, npx)])
     key = (torch.arange(nt, device=rows.device)[None, :, None] * k
            + slots.long().clamp(max=k - 1))
@@ -129,4 +142,8 @@ def fused_shade_work(rows, s_o, s_t, d_o, d_t, ltab, lcount, cam, ipv, org,
         nbytes += (tlist.numel() + tcount.numel()) * 4
     return {"bytes": nbytes, "ops": ops, "items": n_items,
             "items_opaque": int(cov[0].sum()),
-            "items_transparent": int(cov[1].sum()), "rows": n_rows}
+            "items_transparent": int(cov[1].sum()), "rows": n_rows,
+            "items_max_tile": _max(per_tile),
+            "items_max_block": _max(per_block),
+            "light_iters_max_tile": _max(per_tile * n_iter),
+            "critical_path": _max(rounds * n_iter[:, None])}

@@ -35,8 +35,10 @@ from render_engine_tpu_torch.render.lighting import (DIFFUSE_FLOOR,
                                                      SHININESS, LightArrays)
 
 N_LCOL = 28
-MAX_TILE_PIXELS = 1024  # K3 blocks hold one tile at <= 4 px a thread
-MAX_LTAB_BYTES = 48 * 1024  # K3 stages the light table in shared memory
+MAX_TILE_PIXELS = 1024  # the largest tile K3 takes
+MAX_LTAB_BYTES = 48 * 1024  # K3 stages the light rows in shared memory
+BLOCK_PIXELS = 256  # K3: a block owns 256 consecutive pixels of a tile
+BLOCK_THREADS = 128  # two pixels a thread in pass A, one item in pass B
 
 
 def pack_lights(lights: LightArrays, budget: int, slot_entity=None):
@@ -358,7 +360,8 @@ def shade_work_list(s_o, s_t, d_o, d_t):
     each tile's work list, (NT, 2 * npx) int32 items, ``p`` for pixel p on
     the opaque layer and ``npx + p`` on the transparent one, opaque items
     first and each layer in pixel order, padded with -1; with the (NT,)
-    item counts."""
+    item counts. The kernel splits a tile's list over blocks
+    (``shade_block_items``)."""
     nt, th, tw = s_o.shape
     npx = th * tw
     cov = torch.cat([s_o.reshape(nt, npx) >= 0, s_t.reshape(nt, npx) >= 0],
@@ -370,6 +373,91 @@ def shade_work_list(s_o, s_t, d_o, d_t):
     slot = torch.arange(2 * npx, device=s_o.device)[None]
     items = torch.where(slot < n[:, None], order, -1).to(torch.int32)
     return flags, items, n
+
+
+def shade_block_items(s_o, s_t):
+    """K3's split of a tile over blocks, plainly (csrc/fused_shade.cu):
+    block b of tile t owns the tile's pixels [b * BLOCK_PIXELS,
+    (b + 1) * BLOCK_PIXELS) (two rows of an 8x128 tile) and shades their
+    covered items, coded as in ``shade_work_list``, opaque first and each
+    layer in pixel order. Returns (NT, NB, 2 * BLOCK_PIXELS) int32 items
+    padded with -1 and the (NT, NB) item counts, NB = ceil(th * tw /
+    BLOCK_PIXELS)."""
+    nt, th, tw = s_o.shape
+    npx = th * tw
+    nb = -(-npx // BLOCK_PIXELS)
+    dev = s_o.device
+    pad = torch.zeros((nt, nb * BLOCK_PIXELS - npx), dtype=torch.bool,
+                      device=dev)
+
+    def covered(s):
+        return torch.cat([s.reshape(nt, npx) >= 0, pad], dim=1).reshape(
+            nt, nb, BLOCK_PIXELS)
+
+    cov = torch.cat([covered(s_o), covered(s_t)], dim=2)
+    p = torch.arange(nb * BLOCK_PIXELS, device=dev).reshape(nb, BLOCK_PIXELS)
+    code = torch.cat([p, p + npx], dim=1).expand(nt, nb, 2 * BLOCK_PIXELS)
+    order = torch.argsort((~cov).to(torch.int8), dim=2, stable=True)
+    n = cov.sum(dim=2, dtype=torch.int32)
+    slot = torch.arange(2 * BLOCK_PIXELS, device=dev)
+    items = torch.where(slot < n[..., None], torch.gather(code, 2, order), -1)
+    return items.to(torch.int32), n
+
+
+def staged_light_rows(ltab, lcount, nt, tlist=None, tcount=None):
+    """The light rows a block of each tile stages in shared memory, in loop
+    order (csrc/fused_shade.cu): on the list route row i of tile t is
+    ``ltab[clamp(tlist[t, i], 0, nl - 1)]``, on the dense route ``ltab[i]``,
+    for i < n_iter = clamp(tcount[t], 0, lb) or clamp(lcount, 0, nl).
+    Returns (NT, lb or nl, N_LCOL) rows, zero past n_iter, and the (NT,)
+    int32 n_iter."""
+    nl = ltab.shape[0]
+    if tlist is None:
+        n_iter = lcount.reshape(1).clamp(0, nl).expand(nt)
+        idx = torch.arange(nl, device=ltab.device).expand(nt, nl)
+    else:
+        n_iter = tcount.reshape(nt).clamp(0, tlist.shape[1])
+        idx = tlist.long().clamp(0, nl - 1)
+    live = torch.arange(idx.shape[1], device=ltab.device) < n_iter[:, None]
+    rows = torch.where(live[..., None], ltab[idx], 0.0)
+    return rows, n_iter.to(torch.int32)
+
+
+# K3 passes over a light whose radius cuts an item off where the item's and
+# the light's values are bounded (csrc/fused_shade.cu: skip_cut,
+# item_bounded): the light's contribution is then exactly +-0
+SKIP_POS = 2.0 ** 60  # positions, the spot cone
+SKIP_COLOR = 2.0 ** 40  # colours, albedo, spec strength
+SKIP_SHIN = 2.0 ** 16  # the specular exponent
+SKIP_NORMAL2 = 1.0 + 2.0 ** -11  # the normal's squared length
+
+
+def shade_skip_cut(ltab):
+    """(L,) each light row's cutoff: its radius where the row is bounded
+    (position and cone within SKIP_POS, direction within 2, colours within
+    SKIP_COLOR), else +inf. K3 skips the light for a bounded item whose
+    ``d`` exceeds it."""
+    def within(c0, c1, b):
+        return (ltab[:, c0:c1].abs() <= b).all(dim=1)
+
+    radius = ltab[:, 20]
+    ok = ((radius > 0) & torch.isfinite(radius) & within(1, 4, SKIP_POS)
+          & within(4, 7, 2.0) & within(7, 16, SKIP_COLOR)
+          & within(18, 20, SKIP_POS))
+    return torch.where(ok, radius, torch.full_like(radius, float("inf")))
+
+
+def shade_skip_item(w, v, n, albedo, spec_k, shin):
+    """Whether an item's values allow skips: world position ``w`` within
+    SKIP_POS, view vector ``v`` within 2, normal ``n`` of squared length
+    within SKIP_NORMAL2, ``albedo`` and ``spec_k`` within SKIP_COLOR, the
+    exponent in [0, SKIP_SHIN] (each a tensor, vectors on the last axis;
+    the item's PCF factors must be finite too)."""
+    n2 = (n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1]) \
+        + n[..., 2] * n[..., 2]
+    return ((w.abs() <= SKIP_POS).all(-1) & (v.abs() <= 2.0).all(-1)
+            & (n2 <= SKIP_NORMAL2) & (albedo.abs() <= SKIP_COLOR).all(-1)
+            & (spec_k.abs() <= SKIP_COLOR) & (shin >= 0) & (shin <= SKIP_SHIN))
 
 
 def fused_shade(rows, s_o, s_t, d_o, d_t, lights: LightArrays,
@@ -419,10 +507,12 @@ def fused_shade(rows, s_o, s_t, d_o, d_t, lights: LightArrays,
                        **opts)
 
 
-def blocks_per_sm(n_lights: int) -> int:
-    """Blocks of K3 one SM holds at once with ``n_lights`` table rows in
-    shared memory (the CUDA occupancy calculator, on the card)."""
-    blocks = kernels.library().fused_shade_blocks_per_sm(int(n_lights))
+def blocks_per_sm(n_rows: int) -> int:
+    """Blocks of K3 one SM holds at once with room for ``n_rows`` staged
+    light rows in shared memory (the list length on the list route, the
+    table's rows on the dense route; the CUDA occupancy calculator, on the
+    card)."""
+    blocks = kernels.library().fused_shade_blocks_per_sm(int(n_rows))
     if blocks < 0:
         raise RuntimeError("fused_shade_blocks_per_sm: CUDA error")
     return blocks
@@ -472,6 +562,8 @@ def shade_tiles(rows, s_o, s_t, d_o, d_t, ltab, lcount, cam, ipv, org, *,
         lb = tlist.shape[1]
         check(tlist, "tlist", i32, (nt, lb), dev)
         check(tcount, "tcount", i32, (nt,), dev)
+        if lb < 1 or lb * N_LCOL * 4 > MAX_LTAB_BYTES:
+            raise ValueError(f"light lists of {lb} entries do not fit K3")
     if nl < 1 or nl * N_LCOL * 4 > MAX_LTAB_BYTES:
         raise ValueError(f"light table of {nl} rows does not fit K3")
     out = torch.empty((8, nt, th, tw), dtype=f32, device=dev)

@@ -8,7 +8,10 @@
 (b) the bound arithmetic (``kernel_bounds``) on hand-built tables;
 (c) K3's work list (``shade_work_list``, mirrored from
     csrc/fused_shade.cu): items per layer in order, t_front, and a tile
-    with nothing covered.
+    with nothing covered;
+(d) K3's split of a tile over blocks (``shade_block_items``) and the light
+    rows a block stages (``staged_light_rows``), and the critical-path
+    counts of the bound.
 """
 
 import numpy as np
@@ -256,3 +259,244 @@ def test_k3_work_list_flags_equal_the_plain_shade():
     assert w["rows"] == 4
     assert w["bytes"] == (2 * 1024 * 48 + 4 * KB.K3_ROW_FLOATS * 4
                           + ltab.numel() * 4)
+    # rows 0-1 (block 0) hold (0, 5) on both layers and (1, 0); rows 2-3
+    # (block 1) hold (3, 2) on both; one light, one round of 256 threads
+    assert (w["items_max_tile"], w["items_max_block"]) == (5, 3)
+    assert (w["light_iters_max_tile"], w["critical_path"]) == (5, 1)
+    w = KB.fused_shade_work(rows, s_o, s_t, d_o, d_t, ltab, lcount, cam,
+                            torch.eye(4), torch.zeros(2),
+                            tlist=torch.zeros((2, 2), dtype=torch.int32),
+                            tcount=torch.tensor([7, 1], dtype=torch.int32))
+    # tile 0's list runs clamped to its 2 entries
+    assert (w["light_iters_max_tile"], w["critical_path"]) == (10, 2)
+
+
+def _random_planes(rng, shape, p_o, p_t):
+    """Slot / depth planes of the given (NT, th, tw) shape, each pixel
+    covered with probability p_o / p_t (a scalar or one per tile)."""
+    def cov(pr):
+        pr = np.broadcast_to(np.asarray(pr, np.float64).reshape(-1, 1, 1),
+                             (shape[0], 1, 1))
+        return rng.random(shape) < pr
+
+    s_o = np.where(cov(p_o), rng.integers(0, 8, shape), -1)
+    s_t = np.where(cov(p_t), rng.integers(0, 8, shape), -1)
+    d = rng.uniform(-1, 1, (2, *shape)).astype(np.float32)
+    return (torch.from_numpy(s_o.astype(np.int32)),
+            torch.from_numpy(s_t.astype(np.int32)),
+            torch.from_numpy(d[0]), torch.from_numpy(d[1]))
+
+
+@pytest.mark.parametrize("shape", [(5, 8, 128), (3, 4, 100), (3, 16, 64)])
+def test_k3_blocks_shade_every_item_once_in_pixel_order(shape):
+    """Across a tile's blocks, each covered item of the tile's work list
+    is shaded exactly once, and block after block each layer's items come
+    in pixel order: the tile's list split at the blocks' pixel ranges."""
+    rng = np.random.default_rng(11)
+    s_o, s_t, d_o, d_t = _random_planes(rng, shape,
+                                        [0.3, 0.0, 1.0, 0.05, 0.6][
+                                            :shape[0]], 0.2)
+    _, tile_items, tile_n = SP.shade_work_list(s_o, s_t, d_o, d_t)
+    items, n = SP.shade_block_items(s_o, s_t)
+    npx = shape[1] * shape[2]
+    nb = -(-npx // SP.BLOCK_PIXELS)
+    assert tuple(items.shape) == (shape[0], nb, 2 * SP.BLOCK_PIXELS)
+    assert torch.equal(n.sum(dim=1), tile_n)
+    for t in range(shape[0]):
+        got = [items[t, b, :n[t, b]] for b in range(nb)]
+        for b in range(nb):
+            assert bool((items[t, b, n[t, b]:] == -1).all())
+            lo, hi = b * SP.BLOCK_PIXELS, (b + 1) * SP.BLOCK_PIXELS
+            pix = got[b] % npx
+            assert bool(((pix >= lo) & (pix < hi)).all())
+            layer = got[b] >= npx  # opaque items first
+            assert bool((layer[1:].int() >= layer[:-1].int()).all())
+        merged = torch.cat(got)
+        want = tile_items[t, :tile_n[t]]
+        for opaque in (True, False):
+            sel = lambda x: x[(x < npx) == opaque]  # noqa: E731
+            assert torch.equal(sel(merged), sel(want))
+        assert merged.unique().numel() == merged.numel() == int(tile_n[t])
+
+
+def test_k3_block_holds_at_most_two_rows_of_items_on_both_layers():
+    """With everything covered a block of an 8x128 tile holds
+    2 * R * tw = 512 items (R = 2 rows), the most it has room for; a
+    partial last block holds its pixels' share."""
+    assert SP.BLOCK_PIXELS == 2 * 128 == 2 * SP.BLOCK_THREADS
+    for shape, want in (((2, 8, 128), [512] * 4),
+                        ((2, 4, 100), [512, 2 * 144])):
+        full = torch.zeros(shape, dtype=torch.int32)
+        items, n = SP.shade_block_items(full, full)
+        assert n.tolist() == [want] * shape[0]
+        assert int(items.max()) == 2 * shape[1] * shape[2] - 1
+
+
+def test_k3_empty_rows_and_tiles_give_no_items():
+    """A tile with nothing covered and a tile whose last two rows are
+    empty: their blocks hold no item."""
+    s_o, s_t, d_o, d_t = _random_planes(np.random.default_rng(4),
+                                        (3, 8, 128), [0.0, 0.5, 0.5], 0.5)
+    s_o[1, 6:] = -1
+    s_t[1, 6:] = -1
+    s_t[0] = -1
+    items, n = SP.shade_block_items(s_o, s_t)
+    assert n[0].tolist() == [0] * 4 and bool((items[0] == -1).all())
+    assert int(n[1, 3]) == 0 and bool((items[1, 3] == -1).all())
+    assert bool((n[1, :3] > 0).all()) and bool((n[2] > 0).all())
+
+
+def test_k3_staged_rows_on_the_list_route():
+    """Row i of tile t's block is ltab[clamp(tlist[t, i], 0, nl - 1)] for
+    i < clamp(tcount[t], 0, lb), zero past it: counts above lb, negative
+    counts and entries out of range."""
+    rng = np.random.default_rng(2)
+    nl, lb = 12, 5
+    ltab = torch.from_numpy(rng.uniform(-1, 1, (nl, SP.N_LCOL))).float()
+    tlist = torch.from_numpy(rng.integers(-4, nl + 4, (6, lb)).astype(
+        np.int32))
+    tcount = torch.tensor([0, 3, lb, lb + 9, -2, 1], dtype=torch.int32)
+    rows, n_iter = SP.staged_light_rows(ltab, torch.tensor([nl]), 6, tlist,
+                                        tcount)
+    assert n_iter.tolist() == [0, 3, lb, lb, 0, 1]
+    assert tuple(rows.shape) == (6, lb, SP.N_LCOL)
+    for t in range(6):
+        n = int(n_iter[t])
+        idx = tlist[t, :n].long().clamp(0, nl - 1)
+        assert torch.equal(rows[t, :n], ltab[idx])
+        assert not bool(rows[t, n:].any())
+    assert bool((tlist < 0).any()) and bool((tlist >= nl).any())
+
+
+def test_k3_staged_rows_on_the_dense_route():
+    """Without lists every block stages ltab[:clamp(lcount, 0, nl)]."""
+    ltab = torch.arange(4 * SP.N_LCOL, dtype=torch.float32).reshape(
+        4, SP.N_LCOL) + 1.0
+    for lcount, n in ((2, 2), (9, 4), (-1, 0)):
+        rows, n_iter = SP.staged_light_rows(
+            ltab, torch.tensor([lcount], dtype=torch.int32), 3)
+        assert n_iter.tolist() == [n] * 3
+        assert torch.equal(rows[:, :n], ltab[:n].expand(3, n, SP.N_LCOL))
+        assert not bool(rows[:, n:].any())
+
+
+def _one_item_a_tile(rng, nt, scale, albedo, spec_k):
+    """K3's plain-version inputs with one covered opaque pixel, (3, 7), in
+    each of nt tiles of one row: a triangle that encloses the tile, one
+    unit normal at its three vertices, the given (nt, 3) albedo and (nt,)
+    spec strength; ipv = diag(scale, scale, scale, 1). Returns the inputs
+    and the items' world positions, as the plain version unprojects them."""
+    th, tw = 8, 128
+    rows = np.zeros((nt, 1, 48), np.float32)
+    ox = np.arange(nt) * tw
+    rows[:, 0, 0:6] = np.stack([ox - 200, -200 + 0 * ox, ox + 800,
+                                -200 + 0 * ox, ox - 200, 430 + 0 * ox], 1)
+    n = rng.normal(size=(nt, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    rows[:, 0, 10:19] = np.tile(n, 3)
+    rows[:, 0, 25:28] = 1.0
+    rows[:, 0, 29:32] = albedo
+    rows[:, 0, 33] = 1.0
+    rows[:, 0, 34] = spec_k
+    s_o = torch.full((nt, th, tw), -1, dtype=torch.int32)
+    s_o[:, 3, 7] = 0
+    d_o = torch.ones((nt, th, tw))
+    d_o[:, 3, 7] = torch.from_numpy(rng.uniform(-0.9, 0.9, nt)).float()
+    ipv = torch.diag(torch.tensor([scale, scale, scale, 1.0]))
+    width = float(nt * tw)
+    px = torch.from_numpy(ox + 7.0).float() + 0.5
+    w = torch.stack([(px / width * 2.0 - 1.0) * scale,
+                     (1.0 - torch.full((nt,), 3.5) / 8.0 * 2.0) * scale,
+                     d_o[:, 3, 7] * scale], dim=1)
+    args = [torch.from_numpy(rows), s_o, torch.full_like(s_o, -1), d_o,
+            torch.ones_like(d_o)]
+    kw = dict(tiles_x=nt, width=width, height=8.0)
+    return args, ipv, kw, w
+
+
+def _skip_lights(rng, n_lights, w, scale, color):
+    """Point and spot rows around the items, half of them with a radius
+    that cuts some items off; colours up to ``color``."""
+    L = np.zeros((n_lights, SP.N_LCOL), np.float32)
+    L[:, 0] = rng.choice([1.0, 2.0], n_lights)
+    centre = w.numpy()[rng.integers(0, len(w), n_lights)]
+    L[:, 1:4] = centre + rng.uniform(-0.3, 0.3, (n_lights, 3)) * scale
+    dvec = rng.normal(size=(n_lights, 3))
+    L[:, 4:7] = dvec / np.linalg.norm(dvec, axis=1, keepdims=True)
+    L[:, 7:16] = rng.uniform(-color, color, (n_lights, 9))
+    L[:, 16:18] = rng.uniform(0.0, 1.0 / scale, (n_lights, 2))
+    L[:, 18] = rng.uniform(0.5, 1.0, n_lights)
+    L[:, 19] = L[:, 18] - rng.uniform(0.0, 0.5, n_lights)
+    L[:, 20] = rng.uniform(0.05, 0.4, n_lights) * scale
+    return torch.from_numpy(L)
+
+
+def _kept_lists(ltab, w, cam, item_ok):
+    """Each tile's list of the lights K3 does not skip for its one item,
+    ascending, with the counts, and the number skipped."""
+    t = ltab[None, :, 1:4] - w[:, None, :]
+    d = torch.sqrt(torch.clamp(t[..., 0] * t[..., 0] + t[..., 1] * t[..., 1]
+                               + t[..., 2] * t[..., 2], min=1e-18))
+    skip = item_ok[:, None] & (d > SP.shade_skip_cut(ltab)[None, :])
+    idx = torch.arange(ltab.shape[0])
+    key = torch.where(skip, ltab.shape[0], idx[None, :])
+    tlist = torch.sort(key, dim=1).values
+    tlist = torch.where(tlist < ltab.shape[0], tlist, 0).to(torch.int32)
+    return tlist, (~skip).sum(1).to(torch.int32), int(skip.sum())
+
+
+@pytest.mark.parametrize("scale", [1e3, 2.0 ** 57])
+def test_k3_skipped_lights_add_nothing(scale):
+    """The plain version over every light equals it over the lights K3
+    does not skip (shade_skip_cut / shade_skip_item, mirrored from
+    csrc/fused_shade.cu), bit for bit, with values at the rule's bounds:
+    positions near 2^57, colours, albedo and spec strength near 2^40, the
+    exponent 2^16."""
+    rng = np.random.default_rng(int(scale) % 1000)
+    nt = 24
+    albedo = rng.uniform(-1, 1, (nt, 3)) * SP.SKIP_COLOR * 0.99
+    spec_k = rng.uniform(0, 1, nt) * SP.SKIP_COLOR * 0.99
+    args, ipv, kw, w = _one_item_a_tile(rng, nt, scale, albedo, spec_k)
+    ltab = _skip_lights(rng, 48, w, scale, SP.SKIP_COLOR * 0.99)
+    cam = torch.tensor([0.0, 0.0, 2.0 * scale])
+    v = cam[None] - w
+    v = v / torch.linalg.vector_norm(v, dim=1, keepdim=True)
+    n = args[0][:, 0, 10:13]
+    item_ok = SP.shade_skip_item(w, v, n, torch.from_numpy(albedo).float(),
+                                 torch.from_numpy(spec_k).float(),
+                                 torch.full((nt,), SP.SKIP_SHIN))
+    assert bool(item_ok.all())
+    tlist, tcount, n_skipped = _kept_lists(ltab, w, cam, item_ok)
+    assert n_skipped > nt * 4
+    lcount = torch.tensor([ltab.shape[0]], dtype=torch.int32)
+    common = (*args, ltab, lcount, cam, ipv, torch.zeros(2))
+    opts = dict(kw, shin_const=SP.SKIP_SHIN)
+    dense = SP.fused_shade_reference(*common, **opts)
+    kept = SP.fused_shade_reference(*common, tlist=tlist, tcount=tcount,
+                                    **opts)
+    assert bool(torch.isfinite(dense).all())
+    assert torch.equal(dense, kept)
+
+
+def test_k3_lights_beyond_the_bounds_are_not_skipped():
+    """A light whose colour exceeds the bound adds NaN where its radius
+    cuts an item off (0 x inf): the rule keeps it, so the sums keep the
+    NaN, where dropping every cut-off light would not."""
+    rng = np.random.default_rng(5)
+    nt, scale = 8, 1e3
+    albedo = np.full((nt, 3), 1e10)
+    args, ipv, kw, w = _one_item_a_tile(rng, nt, scale, albedo,
+                                        np.ones(nt))
+    ltab = _skip_lights(rng, 16, w, scale, 1.0)
+    ltab[:, 13] = 1e30  # ambient x albedo overflows
+    ltab[:, 20] = 1e-3 * scale  # every light cuts every item off
+    cam = torch.tensor([0.0, 0.0, 2.0 * scale])
+    assert bool(torch.isinf(SP.shade_skip_cut(ltab)).all())
+    lcount = torch.tensor([16], dtype=torch.int32)
+    common = (*args, ltab, lcount, cam, ipv, torch.zeros(2))
+    dense = SP.fused_shade_reference(*common, **kw)
+    assert bool(torch.isnan(dense[0, :, 3, 7]).all())
+    none = torch.zeros((nt, 16), dtype=torch.int32)
+    dropped = SP.fused_shade_reference(
+        *common, tlist=none, tcount=torch.zeros(nt, dtype=torch.int32), **kw)
+    assert bool(torch.isfinite(dropped).all())
