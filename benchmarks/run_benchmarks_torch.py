@@ -1,7 +1,8 @@
 """The five benchmark configurations on the PyTorch + CUDA port.
 
 Usage:
-    python benchmarks/run_benchmarks_torch.py [--device cuda|cpu] [config ...]
+    python benchmarks/run_benchmarks_torch.py [--device cuda|cpu]
+        [--warmup N] [config ...]
 configs: scene, asteroids, lights, tick, playback (default: all)
 
 The parameters are those of ``benchmarks/run_benchmarks.py``. Each
@@ -21,6 +22,12 @@ starts after ``torch.cuda.synchronize()`` and ends after another one behind
 its last frame; nothing else waits inside it. Each function also takes its
 frame counts (and ``warmup``) as keyword arguments and returns its record
 together with the engine it drove, for callers that check more.
+``--warmup N`` sets every configuration's untimed frames (default 3). The
+Engine captures a frame program for each shadow-schedule decision the
+first time it meets it, so with the demo's shadows (interval 3, 2 slots)
+the default window times the capture of the second slot's map program;
+``--warmup 6`` (interval x slots) captures every program before the
+window.
 """
 
 from __future__ import annotations
@@ -286,6 +293,8 @@ def main(argv=None) -> int:
                     help=f"any of {', '.join(ALL)} (default: all)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback")
+    ap.add_argument("--warmup", type=int, default=None,
+                    help="untimed frames before each window (default 3)")
     args = ap.parse_args(argv)
     unknown = [c for c in args.configs if c not in ALL]
     if unknown:
@@ -294,7 +303,8 @@ def main(argv=None) -> int:
     device = require_device(args.device)
     results = []
     for name in args.configs or list(ALL):
-        result, _ = ALL[name](device=device)
+        kw = {} if args.warmup is None else {"warmup": args.warmup}
+        result, _ = ALL[name](device=device, **kw)
         print(json.dumps(result), flush=True)
         results.append(result)
     out = os.environ.get("BENCH_OUT")

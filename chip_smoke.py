@@ -79,10 +79,10 @@ Phases (any failure exits non-zero; no phase catches its own):
              versions); asteroids (10,000 under a thrusting patrol,
              collision_large_budget 64: all 13 drop counters 0, a finite
              image); tick (a 100,000-entity world, capacity 131,072: the
-             entities alive, the step counters, the host's cost of the
-             step's random draws, a rendered frame at max_tris 49152 with
-             K1, K2 and K3 against their plain versions, peak device
-             memory); playback (300 step frames recorded and replayed bit
+             entities alive, the step counters, the device time of the
+             step's random draws in a graph, a rendered frame at max_tris
+             49152 with K1, K2 and K3 against their plain versions, peak
+             device memory); playback (300 step frames recorded and replayed bit
              for bit, two steps past the end, 10 recorded 1080p frames).
              Each prints its JSON line.
   11. bands  (run right after phase 3, as phase 12) the captured frame of
@@ -115,6 +115,29 @@ Phases (any failure exits non-zero; no phase catches its own):
              position), the routes also computed on the host's CPU from
              the same depth as a record; peak device memory; the render's
              ms against the fused one in turns.
+  13. programs the Engine's captured programs (CUDA graphs over its
+             static buffers, fed by the packed input vector) against the
+             same programs' functions run eagerly from the same state
+             (``Eager``), step by step: world hash, image (torch.equal),
+             shadow state, step counters and kernel launches equal. On the
+             headline (27 frames, every fifth a step frame and the updating
+             render, one of 4.5 s that fires the mine spawner; run_frames
+             with the last frame rendered; run_frames_rendered; render();
+             render_only through a detached camera; step()), the
+             unshadowed frame on the same routes, custom shading,
+             lights-720p-256, scene-800x600 and tick-100k's step. Warm-up
+             and capture run with every operation that waits for the
+             device raising (the Engine's own rule). Prints the programs
+             captured, their capture seconds, the graph pool's MiB,
+             ms/frame graphed against eager in turns, and a profile of each:
+             host API launches and device kernels a frame, device time and
+             busy share, with K1, K2 and K3 counted in the trace equal to
+             the launch counts.
+Every phase drives the captured Engine. Where a phase holds a kernel
+against its plain version on a frame's own inputs (phases 2, 3, 7, 8, 10),
+that frame runs through ``Eager``, so the kernel wrappers see each call;
+the launch counts of captured frames are the counts each program's capture
+recorded, added on every replay.
 The last three lines are the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 
@@ -332,6 +355,28 @@ class Plain:
     def __exit__(self, *exc):
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
+
+
+class Eager:
+    """Run an engine's programs by calling their functions
+    (``Engine.program_function``) on its state instead of replaying their
+    CUDA graphs: the card's eager reference for the captured frame, and
+    the route on which the kernel wrappers (and so ``Capture`` and
+    ``Plain``) see every call."""
+
+    def __init__(self, eng):
+        self.eng, self.on = eng, False
+
+    def __enter__(self):
+        eng = self.eng
+        eng._program = lambda key: (
+            lambda: eng.program_function(key)(eng._state))
+        self.on = True
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._program
+        self.on = False
 
 
 class Library:
@@ -591,7 +636,7 @@ def phase_kernels(eng, earlier=None):
 
     for _ in range(CAPTURE_FRAME):
         eng.frame(None, DT)
-    with Capture(RP, "tile_raster") as k1, \
+    with Eager(eng), Capture(RP, "tile_raster") as k1, \
             Capture(RP, "resolve_attributes_pallas") as k2, \
             Capture(SP, "shade_tiles") as k3:
         img = eng.frame(None, DT)
@@ -697,7 +742,7 @@ def phase_frame(eng):
     sh = eng.shadow_state
     maps = sh.maps.clone()
     img_k = eng.render()
-    with Plain():
+    with Eager(eng), Plain():
         img_p = eng.render()
     torch.cuda.synchronize()
     if eng.shadow_state is not sh or not torch.equal(sh.maps, maps):
@@ -874,7 +919,7 @@ def hold_kernels(eng, label, k3=False):
     from render_engine_tpu_torch.render import raster_pallas as RP
     from render_engine_tpu_torch.render import shade_pallas as SP
 
-    with Capture(RP, "tile_raster") as k1, \
+    with Eager(eng), Capture(RP, "tile_raster") as k1, \
             Capture(RP, "resolve_attributes_pallas") as k2, \
             Capture(SP, "shade_tiles") as k3c:
         img = eng.frame(None, DT)
@@ -914,7 +959,7 @@ def frame_through_plain(eng, label, what):
     import torch
 
     img_k = eng.render()
-    with Plain():
+    with Eager(eng), Plain():
         img_p = eng.render()
     torch.cuda.synchronize()
     err = float((img_k - img_p).abs().max())
@@ -1252,10 +1297,10 @@ def phase_lights(earlier=None):
 
     # the same state through the kernels at budget 96, through the plain
     # versions, and through the kernels at budget 0
-    with Capture(SP, "shade_tiles") as k3, \
+    with Eager(eng), Capture(SP, "shade_tiles") as k3, \
             Capture(F, "select_tile_lights") as sel:
         img_l = eng.render()
-    with Plain():
+    with Eager(eng), Plain():
         img_p = eng.render()
     set_budget(0)
     img_d = eng.render()
@@ -1343,12 +1388,12 @@ def custom_systems(eng):
 
     from render_engine_tpu_torch.ecs import registry as R
     from render_engine_tpu_torch.render.render_system import compile_systems
+    from render_engine_tpu_torch.utils.consts import on_device
 
     lit, sources = eng.compiled_systems.src
 
     def shade(sp):
-        tone = torch.as_tensor(sp.uniforms["tone"], dtype=torch.float32,
-                               device=sp.base_color.device)
+        tone = on_device(sp.uniforms["tone"], device=sp.base_color.device)
         n = 0.5 * (sp.normal + 1.0)
         return (sp.base_color * tone + 0.2 * sp.albedo * n).clamp(0.0, 1.0)
 
@@ -1392,8 +1437,9 @@ def phase_custom(eng):
     torch.cuda.reset_peak_memory_stats()
     interval = eng.config.shadow_update_interval
     frames = 6
-    with Capture(RP, "resolve_attributes_pallas",
-                 note=lambda slot, rows, *a, **kw: slot.shape[0]) as tiles:
+    with Eager(eng), Capture(RP, "resolve_attributes_pallas",
+                             note=lambda slot, rows, *a, **kw:
+                             slot.shape[0]) as tiles:
         for i in range(frames):
             before = dict(kernels.LAUNCHES)
             renders_map = eng.shadow_state.tick % interval == 0
@@ -1416,9 +1462,9 @@ def phase_custom(eng):
     if not bool(torch.isfinite(img).all()):
         raise RuntimeError("custom: image has non-finite values")
 
-    with Capture(RP, "resolve_attributes_pallas") as k2:
+    with Eager(eng), Capture(RP, "resolve_attributes_pallas") as k2:
         img_s = eng.render()
-    with Plain():
+    with Eager(eng), Plain():
         img_p = eng.render()
     eng.compiled_systems = unshaded
     img_u = eng.render()
@@ -1590,17 +1636,24 @@ def config_tick(RB):
     for k, v in step.items():
         if v:
             log(f"[configs tick] FINDING: {k} = {v} ({budgets[k]})")
-    # the step's random draws are made on the host, bit for bit jax.random's:
-    # a key, one split per random callback, two uniform(3) draws
-    reps = 200
-    t0 = time.perf_counter()
-    for i in range(reps):
-        _, sub = RND.split(RND.key(i))
+    # the step's random draws are made on the card from the frame's seed,
+    # bit for bit jax.random's: a key, one split per random callback, two
+    # uniform(3) draws
+    seed = torch.tensor(12345, dtype=torch.int64, device="cuda")
+
+    def draws():
+        _, sub = RND.split(RND.key(seed))
         RND.uniform(sub, (3,), minval=-8.0, maxval=8.0)
         RND.uniform(sub, (3,), minval=-2.0, maxval=2.0)
-    log(f"[configs tick] the step's host threefry draws (a key, a split, "
-        f"two uniform(3)): {(time.perf_counter() - t0) / reps * 1e3:.3f} ms "
-        "a step, whatever the entity count")
+
+    draws()  # the warm-up: cached constants
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        draws()
+    log(f"[configs tick] the step's threefry draws on the card (a key, a "
+        f"split, two uniform(3)), captured as in the step program: "
+        f"{device_ms(graph.replay, 20):.4f} ms of device time a step, "
+        "whatever the entity count")
     if eng.shadow_state.tick % c.shadow_update_interval:
         raise RuntimeError("tick: the first rendered frame should render a "
                            "shadow map")
@@ -1663,14 +1716,15 @@ def phase_configs():
 
 def engine_state(eng):
     """What a frame changes on ``eng``, to put back afterwards."""
-    return (eng.world.clone(), eng.camera, eng.shadow_state.clone(),
+    sh = eng.shadow_state
+    return (eng.world.clone(), eng.camera, sh and sh.clone(),
             eng.frame_index, eng._prev_keys.copy(), eng.history,
             len(eng._frame_times))
 
 
 def restore_state(eng, state):
     w, cam, sh, index, prev, history, n_times = state
-    eng.world, eng.camera, eng.shadow_state = w.clone(), cam, sh.clone()
+    eng.world, eng.camera, eng.shadow_state = w.clone(), cam, sh and sh.clone()
     eng.frame_index, eng._prev_keys = index, prev.copy()
     eng.history = history
     del eng._frame_times[n_times:]
@@ -2104,6 +2158,303 @@ def phase_golden():
 
 
 
+# phase 13: the Engine's captured programs against the same programs'
+# functions run eagerly (Eager), route by route
+PROGRAM_FRAMES = 6
+PROGRAM_TURNS = ("graphed", "eager", "eager", "graphed") * 3
+PROFILE_FRAMES = 6
+SPAWN_AT, SPAWN_DT = 7, 4.5  # a frame long enough to fire the mine spawner
+HOST_LAUNCH_APIS = ("cudaGraphLaunch", "cudaLaunchKernel",
+                    "cudaLaunchKernelExC", "cuLaunchKernel",
+                    "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def program_record(eng, img, before):
+    """What one step of a route leaves: the world hash, the image, the
+    shadow state, the step counters and the kernel launches since
+    ``before``."""
+    from render_engine_tpu_torch.logic.step import unpack_drop_stats
+    from render_engine_tpu_torch.utils.hashing import world_hash
+
+    sh = eng.shadow_state
+    return dict(
+        hash=world_hash(eng.world), img=img,
+        shadow=None if sh is None else (sh.maps, sh.light_mats,
+                                        sh.slot_entity, sh.slot_face,
+                                        sh.cursor, sh.tick),
+        drops=(None if eng._last_drops is None
+               else unpack_drop_stats(eng._last_drops)),
+        launches=launch_delta(before))
+
+
+def drive_routes(eng):
+    """33 step frames over every route: frames (fused; every fifth a step
+    frame and the updating render; frame SPAWN_AT lasts SPAWN_DT s), then
+    run_frames (3, the last rendered), run_frames_rendered (3), render(),
+    render_only through a detached camera of another field of view, and
+    step(). Returns a program_record a call."""
+    from render_engine_tpu_torch import kernels
+
+    out = []
+
+    def rec(fn):
+        before = dict(kernels.LAUNCHES)
+        out.append(program_record(eng, fn(), before))
+
+    for i in range(27):
+        rec(lambda: eng.frame(frame_inputs(i),
+                              SPAWN_DT if i == SPAWN_AT else DT,
+                              advance="step" if i % 5 == 3 else None))
+    rec(lambda: eng.run_frames([frame_inputs(27 + j) for j in range(3)],
+                               [DT] * 3, render_last=True))
+    rec(lambda: eng.run_frames_rendered(
+        [frame_inputs(30 + j) for j in range(3)], [DT] * 3))
+    rec(eng.render)
+    detached = dataclasses.replace(eng.camera, fov_y=0.9)
+    rec(lambda: eng.render_only(detached))
+    rec(lambda: eng.step(frame_inputs(40), DT))
+    return out
+
+
+def drive_frames(n, render=True):
+    """``n`` frames (rendered) or ``n`` steps and a run_frames burst."""
+    from render_engine_tpu_torch import kernels
+
+    def drive(eng):
+        out = []
+        for i in range(n):
+            before = dict(kernels.LAUNCHES)
+            img = (eng.frame(frame_inputs(i), DT) if render
+                   else eng.step(frame_inputs(i), DT))
+            out.append(program_record(eng, img, before))
+        if not render:
+            before = dict(kernels.LAUNCHES)
+            eng.run_frames([frame_inputs(n + j) for j in range(3)], [DT] * 3)
+            out.append(program_record(eng, None, before))
+        return out
+
+    return drive
+
+
+def program_name(key):
+    """A program key, its camera configuration cut to the field of view."""
+    if key[0] == "render":
+        return (f"render(fov_y {dict(key[1])['fov_y']:.3f}, inputs "
+                f"{key[2]})")
+    return "/".join(map(str, key))
+
+
+def graph_pool_bytes(eng):
+    """Bytes of the caching allocator's segments in ``eng``'s graph pool
+    (its programs share one private pool)."""
+    import torch
+
+    if eng._pool is None:
+        return 0
+    return sum(seg["total_size"]
+               for seg in torch.cuda.memory._snapshot()["segments"]
+               if tuple(seg.get("segment_pool_id", ())) == tuple(eng._pool))
+
+
+def captured_vs_eager(label, eng, drive):
+    """``drive`` on ``eng`` through its captured programs, then from the
+    same state through the programs' functions (Eager): every step's world
+    hash, image (torch.equal), shadow state, step counters and kernel
+    launches must be equal. The engine's state is put back."""
+    import torch
+
+    state = engine_state(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = drive(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pool = graph_pool_bytes(eng)
+    restore_state(eng, state)
+    with Eager(eng):
+        want = drive(eng)
+    torch.cuda.synchronize()
+    restore_state(eng, state)
+    if len(got) != len(want):
+        raise RuntimeError(f"[programs] {label}: {len(got)} against "
+                           f"{len(want)} steps")
+    for i, (g, w) in enumerate(zip(got, want)):
+        same = {
+            "hash": g["hash"] == w["hash"],
+            "image": (g["img"] is None) == (w["img"] is None) and (
+                g["img"] is None or torch.equal(g["img"], w["img"])),
+            "shadow": (g["shadow"] is None) == (w["shadow"] is None) and (
+                g["shadow"] is None or (
+                    all(torch.equal(a, b) for a, b in
+                        zip(g["shadow"][:4], w["shadow"][:4]))
+                    and g["shadow"][4:] == w["shadow"][4:])),
+            "drops": g["drops"] == w["drops"],
+            "launches": g["launches"] == w["launches"]}
+        if not all(same.values()):
+            raise RuntimeError(
+                f"[programs] {label} step {i}: captured differs from eager "
+                f"in {[k for k, v in same.items() if not v]} (launches "
+                f"{g['launches']} against {w['launches']})")
+    secs = eng.capture_seconds()
+    maps = sum(r["launches"]["tile_raster_one_pass"] for r in got)
+    log(f"[programs] {label}: {len(got)} steps captured against eager: "
+        "world hashes, images (torch.equal), shadow state, step counters "
+        f"and launches equal ({sum(sum(r['launches'].values()) for r in got)}"
+        f" kernel launches, {maps} shadow rasters); "
+        f"{len(secs)} programs captured in {sum(secs.values()):.2f} s "
+        "(two warm-ups each included): "
+        + ", ".join(f"{program_name(k)} {v:.2f}" for k, v in sorted(
+            secs.items(), key=str))
+        + f"; the captured run {wall:.2f} s; graph pool "
+        f"{pool / 2**20:.1f} MiB")
+    return dict(steps=len(got), programs=len(secs),
+                capture_s=sum(secs.values()), pool_mib=pool / 2**20)
+
+
+def frame_profile(eng, frames):
+    """Host API launches (graph launches, kernel launches, copies and
+    memsets) and device kernels a frame over ``frames`` frames, with the
+    device time a frame and the device's busy share, all from one traced
+    run: the union of the trace's device rows over the window that CUDA
+    events on the frames' stream take (from before the first frame's
+    launch to the end of the last frame's work)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from render_engine_tpu_torch import kernels
+    from render_engine_tpu_torch.runtime.profiling import device_activity
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):  # the profiler's own start-up
+        eng.frame(None, DT)
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=acts) as prof:
+        first.record()
+        for _ in range(frames):
+            eng.frame(None, DT)
+        last.record()
+        torch.cuda.synchronize()
+    window_ms = first.elapsed_time(last)
+    counted = launch_delta(before)
+    events = prof.key_averages()
+    api = {e.key: e.count / frames for e in events
+           if e.key in HOST_LAUNCH_APIS}
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def named(part):
+        return sum(e.count for e in dev if part in e.key)
+
+    # the kernels the profiler saw run, against the wrappers' counts
+    seen = {"tile_raster": named("tile_raster_kernel"),
+            "tile_raster_one_pass": named("tile_raster_kernel<false>"),
+            "resolve": named("resolve_kernel"),
+            "fused_shade": named("fused_shade_kernel")}
+    if any(seen[k] != counted[k] for k in seen):
+        raise RuntimeError(f"the profiler saw {seen} kernels in {frames} "
+                           f"frames, the launch counts say {counted}")
+    act = device_activity(prof.events())
+    return dict(host_launches=sum(api.values()), host_api=api,
+                device_kernels=act["rows"] / frames,
+                device_ms=act["sum_ms"] / frames,
+                window_ms=window_ms / frames,
+                busy_share=act["busy_ms"] / window_ms,
+                overlap=act["sum_ms"] / act["busy_ms"], kernels_seen=seen)
+
+
+def phase_programs():
+    """Captured against eager on the headline (both advance routes, the
+    bursts, render and render_only, step), the unshadowed frame, custom
+    shading, lights-720p-256, scene-800x600 and tick-100k's step; then,
+    on the headline, ms/frame graphed against eager in turns and a
+    profile of each."""
+    import torch
+
+    from benchmarks import run_benchmarks_torch as RB
+    from render_engine_tpu_torch.demo.space_scene import build_space_engine
+
+    out = {}
+    eng = build_space_engine(device="cuda", **SLICE)
+    eng.config.record_history = False
+    out["headline"] = captured_vs_eager("headline 1080p/10k, shadows", eng,
+                                        drive_routes)
+    eager = Eager(eng)
+
+    def start(which):
+        eng.reset()
+        if (which == "eager") != eager.on:
+            if eager.on:
+                eager.__exit__()
+            else:
+                eager.__enter__()
+
+    turns = turn_medians(eng, PROGRAM_TURNS, start, "programs",
+                         "headline frame ")
+    if eager.on:
+        eager.__exit__()
+    profiles = {}
+    for which in ("graphed", "eager"):
+        start(which)
+        profiles[which] = frame_profile(eng, PROFILE_FRAMES)
+    if eager.on:
+        eager.__exit__()
+    for which, p in profiles.items():
+        api = ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+            p["host_api"].items()))
+        log(f"[programs] headline {which}: {p['host_launches']:.1f} host API "
+            f"launches a frame ({api}), {p['device_kernels']:.1f} device "
+            f"rows a frame summing to {p['device_ms']:.3f} ms; the device "
+            f"busy {p['busy_share']:.4f} of the traced window of "
+            f"{p['window_ms']:.3f} ms a frame (untraced median "
+            f"{turns[which]:.2f} ms/frame); device rows' sum over their "
+            f"union {p['overlap']:.4f}; K1, K2 and K3 in the trace in "
+            f"{PROFILE_FRAMES} frames: {p['kernels_seen']} (equal to the "
+            "launch counts)")
+    if profiles["graphed"]["device_kernels"] != \
+            profiles["eager"]["device_kernels"]:
+        log("[programs] device kernels a frame differ between graphed and "
+            "eager: the graph's copies back into the static buffers and the "
+            "image clone")
+    eng.reset()
+    default = eng.compiled_systems
+    eng.compiled_systems = custom_systems(eng)[0]
+    out["custom"] = captured_vs_eager("custom shading 1080p/10k", eng,
+                                      drive_frames(PROGRAM_FRAMES))
+    eng.compiled_systems = default
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = build_space_engine(device="cuda", enable_shadows=False, **SLICE)
+    eng.config.record_history = False
+    out["unshadowed"] = captured_vs_eager("unshadowed 1080p/10k", eng,
+                                          drive_routes)
+    del eng
+    torch.cuda.empty_cache()
+    eng = build_lights_engine()
+    out["lights"] = captured_vs_eager("lights-720p-256", eng,
+                                      drive_frames(PROGRAM_FRAMES))
+    del eng
+    torch.cuda.empty_cache()
+    _, eng = RB.bench_scene(scale=1.0, frames=1)
+    out["scene"] = captured_vs_eager("scene-800x600", eng,
+                                     drive_frames(PROGRAM_FRAMES))
+    del eng
+    torch.cuda.empty_cache()
+    _, eng = RB.bench_tick(scale=1.0, frames=1, burst=2)
+    out["tick"] = captured_vs_eager("tick-100k step", eng,
+                                    drive_frames(PROGRAM_FRAMES,
+                                                 render=False))
+    del eng
+    torch.cuda.empty_cache()
+    log(json.dumps({"programs": dict(
+        routes=out, ms_per_frame_graphed=turns["graphed"],
+        ms_per_frame_eager=turns["eager"], profile=profiles)}))
+    return out
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace, set before CUDA
     # starts (phase 6 runs with deterministic algorithms)
@@ -2170,6 +2521,7 @@ def main() -> int:
     rec_l, launches_l, frames_l = phase_lights(earlier)
     phase_golden()
     phase_configs()
+    phase_programs()
     # the two branch rows take their launches from their own phase's run
     rec.update(resolve_full_frame=rec_c, fused_shade_tile_lists=rec_l)
     for name, run, n in (("resolve_full_frame", launches_c, frames_c),

@@ -30,6 +30,8 @@ from render_engine_tpu_torch.render.frame import RenderSettings
 from render_engine_tpu_torch.render.raster_jnp import RasterConfig
 from render_engine_tpu_torch.runtime.config import EngineConfig
 from render_engine_tpu_torch.runtime.engine import Engine
+from render_engine_tpu_torch.utils.consts import const
+from render_engine_tpu_torch.utils.indexing import gather_row
 
 TYPE_STAR = 0
 TYPE_ASTEROID = 1
@@ -71,7 +73,7 @@ def mine_producer_logic(world, dt, mask, rng, cs):
     """Every MINE_SPAWN_PERIOD seconds, spawn one mine at a random offset
     from the first firing producer. The offset and the velocity are drawn
     from the same key ``rng`` (so they share their bits, as in the JAX
-    version), on the host, and go to the device as one upload."""
+    version), on the key's device; the bits are hashed once."""
     timer = world["spawn_timer"] + torch.where(mask, dt, 0.0)
     fire = mask & (timer >= MINE_SPAWN_PERIOD)
     timer = torch.where(fire, torch.zeros_like(timer), timer)
@@ -79,15 +81,15 @@ def mine_producer_logic(world, dt, mask, rng, cs):
     any_fire = fire.any()
     src = fire.to(torch.int8).argmax()
     dev = world.device
-    draws = torch.from_numpy(np.concatenate([
-        RND.uniform(rng, (3,), minval=-8.0, maxval=8.0),
-        RND.uniform(rng, (3,), minval=-2.0, maxval=2.0)])).to(dev)
-    offset, vel = draws[:3], draws[3:]
+    bits = RND.random_bits(rng, (3,))
+    offset = RND.bits_to_uniform(bits, minval=-8.0, maxval=8.0)
+    vel = RND.bits_to_uniform(bits, minval=-2.0, maxval=2.0)
     budget = cs.spawns.budget
     row = (torch.arange(budget, device=dev) == 0) & any_fire
     return C.queue_spawn(
         cs, world.config.registry, row,
-        position=(world["position"][src] + offset).expand(budget, 3),
+        position=(gather_row(world["position"], src) + offset).expand(
+            budget, 3),
         velocity=vel.expand(budget, 3),
         scale=torch.full((budget, 3), 0.4, device=dev),
         type_id=torch.full((budget,), TYPE_MINE, dtype=torch.int32,
@@ -107,8 +109,7 @@ def user_input_logic(world, camera, inputs, dt, cs):
     camera = camera.rotated(inputs.mouse_delta[0], inputs.mouse_delta[1])
     k = inputs.keys.to(torch.float32)
     fwd = camera.direction()
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                      device=world.device)
+    up = const((0.0, 1.0, 0.0), device=world.device)
     right = T.cross(fwd, up)
     right = right / torch.linalg.vector_norm(right)
     accel = (fwd * (k[KEY_W] - k[KEY_S]) + right * (k[KEY_D] - k[KEY_A])
@@ -125,8 +126,7 @@ def user_collision_logic(world, other_idx, mask, cs, other_type=None):
     hit_wormhole = mask & (other_type == TYPE_WORMHOLE)
     vel = world["velocity"]
     speed = torch.linalg.vector_norm(vel, dim=-1, keepdim=True)
-    fallback = torch.tensor([0.0, 0.0, -1.0], dtype=torch.float32,
-                            device=world.device)
+    fallback = const((0.0, 0.0, -1.0), device=world.device)
     direction = torch.where(speed > 1e-6, vel / speed.clamp(min=1e-6),
                             fallback)
     return C.with_update(cs, "velocity", direction * WORMHOLE_IMPULSE,

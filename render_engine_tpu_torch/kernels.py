@@ -13,7 +13,10 @@ where it launches its kernel and nowhere else. ``tile_raster``, ``resolve``
 and ``fused_shade`` count every launch of K1, K2 and K3; two more keys
 also count the launches of one branch: ``tile_raster_one_pass`` (K1's
 shadow-map mode) and ``fused_shade_tile_lists`` (K3 looping over per-tile
-light lists).
+light lists). A wrapper runs when a program is captured, not when its
+CUDA graph replays: the Engine records the counts of each capture and
+adds them on every replay (``runtime/engine.py``), so the counts a frame
+are the same either way.
 """
 
 from __future__ import annotations

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from render_engine_tpu_torch.ecs import registry as R
@@ -114,7 +115,7 @@ def find_collisions(world: World, grid: G.GridIndex,
     cap = world.capacity
     dev = world.device
     pos = world["position"]
-    cut = torch.tensor(CAMERA_CUTOFF, dtype=torch.float32)
+    cut = np.float32(CAMERA_CUTOFF)
     near_cam = (((pos - camera_position[None]) ** 2).sum(dim=-1)
                 <= float(cut * cut))
     q = query_mask & near_cam

@@ -11,6 +11,7 @@ from render_engine_tpu_torch.ecs import registry as R
 from render_engine_tpu_torch.ecs.world import World
 from render_engine_tpu_torch.logic import types as LT
 from render_engine_tpu_torch.math import transforms as T
+from render_engine_tpu_torch.utils.consts import const
 
 
 def integrate(world: World, dt: float, mask: torch.Tensor
@@ -88,8 +89,7 @@ def handle_out_of_bounds(world: World, types
     """Clamp / mark / delete per type policy. Returns
     (world, kill_mask, oob_mask)."""
     cfg = world.config
-    lo = torch.tensor(cfg.world_min, dtype=torch.float32,
-                      device=world.device)
+    lo = const(tuple(map(float, cfg.world_min)), device=world.device)
     hi = lo + cfg.world_length
     pos = world["position"]
     oob = world.alive & ((pos < lo) | (pos > hi)).any(dim=-1)

@@ -7,8 +7,14 @@ refresh, and the camera snapped to the user entity.
 
 Randomness: as in the JAX step, the frame's key is ``key(rng_seed)`` and
 each random callback gets its own subkey, split off in the JAX order
-(``rng, sub = split(rng)``). Keys and draws are the host-side threefry of
-``logic/random.py``, bit for bit those of ``jax.random``.
+(``rng, sub = split(rng)``). Keys and draws are the threefry of
+``logic/random.py`` on the world's device, bit for bit those of
+``jax.random``.
+
+Per-frame values arrive as tensors: the seed as a 0-dim int64 tensor and
+``dt`` as a 0-dim float32 tensor (``InputState.unpack_with_dt`` of the
+packed wire), so the tick reads nothing back from the device and uploads
+nothing, and runs inside a captured frame program as it runs eagerly.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from render_engine_tpu_torch.logic import collision as COL
 from render_engine_tpu_torch.logic import kinematics as K
 from render_engine_tpu_torch.logic import random as RND
 from render_engine_tpu_torch.logic.types import EntityType, InputState
+from render_engine_tpu_torch.utils.indexing import gather_row
 from render_engine_tpu_torch.world import culling
 from render_engine_tpu_torch.world import grid as G
 
@@ -68,13 +75,14 @@ def make_step(types: Sequence[EntityType], *, logic_radius=None,
     """Build the world tick for a closed set of entity types. The returned
     ``step(world, camera, inputs, dt, aabb_min, aabb_max)`` gives
     ``(world, camera, stats)``; ``inputs`` is the device form of
-    ``InputState`` (``InputState.to_device``)."""
+    ``InputState`` (``InputState.to_device`` or ``unpack_with_dt``), whose
+    ``rng_seed`` is an int64 tensor on the world's device; ``dt`` a 0-dim
+    float32 tensor there (``unpack_with_dt``)."""
     types = tuple(types)
 
-    def step(world: World, camera, inputs: InputState, dt: float,
+    def step(world: World, camera, inputs: InputState, dt: torch.Tensor,
              model_aabb_min, model_aabb_max):
         dev = world.device
-        dt = float(np.float32(dt))
         rng = RND.key(inputs.rng_seed)
 
         world = world.replace(
@@ -170,7 +178,7 @@ def make_step(types: Sequence[EntityType], *, logic_radius=None,
         uidx = has_user.to(torch.int8).argmax()
         camera = dataclasses.replace(
             camera, position=torch.where(has_user.any(),
-                                         world["position"][uidx],
+                                         gather_row(world["position"], uidx),
                                          camera.position))
         return world, camera, stats
 

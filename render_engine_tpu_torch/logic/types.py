@@ -11,7 +11,10 @@ JAX package's, over tensors:
 
 ``InputState`` keeps the host-side numpy constructors and the replay
 codecs (``serialize`` and the packed ``pack_with_dt`` wire); ``to_device``
-turns one into the tensors the step reads.
+turns one into the tensors the step reads, and ``unpack_with_dt`` of a
+packed tensor gives the same tensors on the tensor's device, with no host
+read: the seed is a 0-dim int64 tensor and ``dt`` a 0-dim float32 tensor,
+so a captured program reads both from the packed vector.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ class InputState:
     """One frame's input: keys bool[NUM_KEYS], mouse_delta (2,) f32 radians,
     rng_seed (uint32, the frame's threefry seed), prev_keys (engine-
     maintained). Host-built inputs hold numpy arrays; ``to_device`` gives
-    the tensor form the step consumes (``rng_seed`` stays a Python int)."""
+    the tensor form the step consumes (``rng_seed`` a 0-dim int64
+    tensor)."""
 
     keys: object
     mouse_delta: object
@@ -95,7 +99,8 @@ class InputState:
             keys=torch.as_tensor(np.asarray(self.keys, bool), device=device),
             mouse_delta=torch.as_tensor(
                 np.asarray(self.mouse_delta, np.float32), device=device),
-            rng_seed=int(np.uint32(self.rng_seed)),
+            rng_seed=torch.as_tensor(int(np.uint32(self.rng_seed)),
+                                     dtype=torch.int64, device=device),
             prev_keys=torch.as_tensor(np.asarray(self.prev_keys, bool),
                                       device=device))
 
@@ -128,10 +133,20 @@ class InputState:
         return out
 
     @staticmethod
-    def unpack_with_dt(vec) -> tuple["InputState", np.float32]:
-        """Inverse of ``pack_with_dt`` (host-side)."""
-        v = np.asarray(vec, np.float32)
+    def unpack_with_dt(vec):
+        """Inverse of ``pack_with_dt``. A float32 tensor unpacks on its
+        device into the step's tensor form and a 0-dim float32 ``dt``
+        (the JAX package's traced inverse); anything else unpacks on the
+        host into numpy and ``np.float32``."""
         k = NUM_KEYS
+        if isinstance(vec, torch.Tensor):
+            seed = ((vec[2 * k + 3].to(torch.int64) << 16)
+                    | vec[2 * k + 2].to(torch.int64))
+            return InputState(keys=vec[0:k] > 0.5,
+                              mouse_delta=vec[2 * k:2 * k + 2],
+                              rng_seed=seed,
+                              prev_keys=vec[k:2 * k] > 0.5), vec[2 * k + 4]
+        v = np.asarray(vec, np.float32)
         seed = (int(v[2 * k + 3]) << 16) | int(v[2 * k + 2])
         return InputState(keys=v[0:k] > 0.5, mouse_delta=v[2 * k:2 * k + 2],
                           rng_seed=seed, prev_keys=v[k:2 * k] > 0.5), \

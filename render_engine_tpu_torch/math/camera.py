@@ -17,6 +17,8 @@ import numpy as np
 import torch
 
 from render_engine_tpu_torch.math import transforms as T
+from render_engine_tpu_torch.utils import consts
+from render_engine_tpu_torch.utils.consts import const
 
 PERSPECTIVE = 0
 ORTHOGRAPHIC = 1
@@ -45,17 +47,15 @@ class Camera:
         return T.direction_from_yaw_pitch(self.yaw, self.pitch)
 
     def view_matrix(self) -> torch.Tensor:
-        up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                          device=self.device)
+        up = const((0.0, 1.0, 0.0), device=self.device)
         return T.look_at(self.position, self.position + self.direction(), up)
 
     def projection_matrix(self) -> torch.Tensor:
-        if self.projection_kind == ORTHOGRAPHIC:
-            h = self.ortho_half_extent
-            return T.orthographic(-h, h, -h / self.aspect, h / self.aspect,
-                                  self.near, self.far).to(self.device)
-        return T.perspective(self.fov_y, self.aspect, self.near, self.far,
-                             device=self.device)
+        """The projection of the static configuration: built on the host
+        and uploaded once per configuration and device."""
+        return _projection(self.projection_kind, self.fov_y, self.aspect,
+                           self.near, self.far, self.ortho_half_extent,
+                           self.device)
 
     def proj_view(self) -> torch.Tensor:
         return T.mm44(self.projection_matrix(), self.view_matrix())
@@ -65,8 +65,7 @@ class Camera:
 
     def rotated(self, d_yaw, d_pitch) -> "Camera":
         """Mouse-look with pitch clamped to +/- 89 degrees."""
-        limit = float(torch.tensor(89.0 * math.pi / 180.0,
-                                   dtype=torch.float32))
+        limit = float(np.float32(89.0 * math.pi / 180.0))
         return dataclasses.replace(
             self, yaw=self.yaw + d_yaw,
             pitch=torch.clamp(self.pitch + d_pitch, -limit, limit))
@@ -74,8 +73,9 @@ class Camera:
     def float_position(self, accel, dt) -> "Camera":
         """Inertial movement: the velocity integrates ``accel`` and decays
         by ``movement_factor``, then moves the position, in float32 in the
-        JAX package's order."""
-        dt = float(np.float32(dt))
+        JAX package's order. ``dt``: a float or a 0-dim float32 tensor."""
+        if not isinstance(dt, torch.Tensor):
+            dt = float(np.float32(dt))
         vel = (self.velocity + accel * dt) * float(
             np.float32(self.movement_factor))
         return dataclasses.replace(self, velocity=vel,
@@ -101,6 +101,15 @@ class Camera:
         return dataclasses.replace(
             self, position=self.position.to(device), yaw=self.yaw.to(device),
             pitch=self.pitch.to(device), velocity=self.velocity.to(device))
+
+
+@consts.cached(maxsize=8)
+def _projection(kind, fov_y, aspect, near, far, ortho_half_extent, device):
+    if kind == ORTHOGRAPHIC:
+        h = ortho_half_extent
+        return T.orthographic(-h, h, -h / aspect, h / aspect, near,
+                              far).to(device)
+    return T.perspective(fov_y, aspect, near, far, device=device)
 
 
 class CameraBuilder:

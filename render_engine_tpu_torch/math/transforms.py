@@ -12,7 +12,10 @@ switched off for both matmuls and cuDNN when this module is imported.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from render_engine_tpu_torch.utils.consts import const
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -151,11 +154,22 @@ def look_at(eye: torch.Tensor, target: torch.Tensor, up: torch.Tensor
 
 def _matrix(entries: dict, like: torch.Tensor) -> torch.Tensor:
     """The (4, 4) float32 identity on ``like``'s device with the given
-    {(row, col): float or 0-d tensor} entries written over it."""
-    m = torch.eye(4, dtype=torch.float32, device=like.device)
+    {(row, col): float or 0-d tensor} entries written over it. The float
+    entries are one cached constant; each tensor entry is selected in on
+    the device (writing a 0-d device tensor into an element waits for the
+    device)."""
+    dev = like.device
+    base = [float(r == c) for r in range(4) for c in range(4)]
     for (r, c), v in entries.items():
-        m[r, c] = v
-    return m
+        if not isinstance(v, torch.Tensor):
+            base[4 * r + c] = float(v)
+    m = const(tuple(base), device=dev)
+    for (r, c), v in entries.items():
+        if isinstance(v, torch.Tensor):
+            at = const(tuple(i == 4 * r + c for i in range(16)), torch.bool,
+                       dev)
+            m = torch.where(at, v.to(torch.float32), m)
+    return m.reshape(4, 4)
 
 
 def perspective(fov_y_rad, aspect: float, near: float, far,
@@ -163,9 +177,10 @@ def perspective(fov_y_rad, aspect: float, near: float, far,
     """GL-style perspective projection, NDC z in [-1, 1]. ``fov_y_rad``
     and ``far`` may be 0-d float32 tensors (the light cameras); the matrix
     is built where ``fov_y_rad`` lives, then moved to ``device``."""
-    fov = torch.as_tensor(fov_y_rad, dtype=torch.float32)
+    fov = fov_y_rad if isinstance(fov_y_rad, torch.Tensor) else \
+        torch.as_tensor(fov_y_rad, dtype=torch.float32)
     t = 1.0 / torch.tan(0.5 * fov)
-    m = _matrix({(0, 0): t / torch.tensor(aspect, dtype=torch.float32),
+    m = _matrix({(0, 0): t / float(np.float32(aspect)),
                  (1, 1): t,
                  (2, 2): (far + near) / (near - far),
                  (2, 3): 2.0 * far * near / (near - far),

@@ -158,7 +158,8 @@ class ModelBank:
 
     def lov_model_id(self, model_id, distance, draw_distance, band_bias=0):
         """(model, camera distance) -> bank entry of the distance band."""
-        frac = distance / torch.tensor(draw_distance, dtype=torch.float32)
+        # a host scalar, as a 0-dim CPU tensor was: both divide alike
+        frac = distance / float(np.float32(draw_distance))
         band = torch.searchsorted(self.lov_fractions, frac.contiguous(),
                                   right=True)
         band = (band + band_bias).clamp(0, NUM_LOV_BANDS)

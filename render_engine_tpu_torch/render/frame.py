@@ -46,6 +46,7 @@ from render_engine_tpu_torch.render.shade_pallas import (fused_shade,
                                                          select_tile_lights)
 from render_engine_tpu_torch.render.textures import (sample_atlas,
                                                      sample_atlas_rows)
+from render_engine_tpu_torch.utils import consts
 
 BACKENDS = ("auto", "jnp")
 
@@ -82,10 +83,11 @@ def _gate_skybox(background, skybox_on, settings):
     the sampled background with the clear color."""
     if skybox_on is None:
         return background
+    from render_engine_tpu_torch.render.render_system import _bool, _f32
+
     dev = background.device
-    return torch.where(
-        torch.as_tensor(skybox_on, dtype=torch.bool, device=dev), background,
-        torch.tensor(settings.clear_color, dtype=torch.float32, device=dev))
+    return torch.where(_bool(skybox_on, dev), background,
+                       _f32(settings.clear_color, dev))
 
 
 def render_frame(world, camera, bank, settings: RenderSettings, *,
@@ -407,7 +409,7 @@ def _tile_origins(nt, tiles_x, th, twd, y_off):
 # each division like the JAX package's device code (CUDA turns a division
 # by a host scalar into a multiply by its reciprocal), and cached on the
 # device per tiling.
-@functools.lru_cache(maxsize=8)
+@consts.cached(maxsize=8)
 def _tile_corner_xy(nt, tiles_x, th, twd, width, h_total, y_off, device):
     """(NT, 8, 2) float32 camera-NDC (x, y) of each tile's 8 frustum
     corners: the screen rect, twice (near and far depth)."""
@@ -422,7 +424,7 @@ def _tile_corner_xy(nt, tiles_x, th, twd, width, h_total, y_off, device):
                                  axis=-1), device=device)
 
 
-@functools.lru_cache(maxsize=8)
+@consts.cached(maxsize=8)
 def _pixel_ndc(nt, tiles_x, th, twd, width, h_total, y_off, k, device):
     """(2, NT, ceil(th/k), ceil(tw/k)) float32 camera-NDC (x, y) of every
     k-th pixel center of each tile."""
@@ -630,7 +632,8 @@ def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
                                          (50, with_norm), (59, with_diss))
                          if on]
         # tiles with any textured candidate: a superset of textured winners
-        tex_tri = rows[..., tex_ch].amax(dim=-1) >= 0.0
+        tex_tri = rows.index_select(-1, consts.const(
+            tuple(tex_ch), torch.int64, dev)).amax(dim=-1) >= 0.0
         tex_cand = ((cand >= 0) & tex_tri).any(dim=1)
         flags = dict(with_spec=with_spec, with_emis=with_emis,
                      with_norm=with_norm, with_diss=with_diss)

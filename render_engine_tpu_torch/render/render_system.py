@@ -14,9 +14,20 @@ shading rows folded into the one fused pass. A system may also carry
   on the fused path (a hook after K3 over K2's full-frame resolve) and on
   the golden path.
 
-PyTorch runs eagerly, so both callbacks run every frame. Conditions and
-uniform values may be tensors; they are folded with ``torch.where`` / ``&``
-and never read back, so a callback adds no wait for the device.
+Both callbacks are part of the Engine's frame programs: on a card they
+run while the program is captured (and its warm-ups) and never again, as
+the JAX package traces them once; the graph replays the device work they
+did. So per-frame values reach a callback only through ``inputs`` (the
+packed input vector), the world, the camera and uniforms that are tensors,
+never through Python state read at call time: a Python number, a bool or
+a Python branch is a constant of the captured program. Conditions and
+uniform values may be tensors; they are folded with ``torch.where`` /
+``&`` and never read back. A callback must not read a tensor's value on
+the host (``.item()``, ``bool``, ``if`` on a tensor) or upload one
+(``torch.tensor`` / ``torch.as_tensor`` of host data on the card): a
+capture refuses both. A number that has to become a tensor goes through
+``utils.consts.on_device``, which uploads it once. On the CPU the programs
+run eagerly, and the callbacks every frame.
 ``render_frame_systems`` is the golden multi-system renderer: one G-buffer
 per system, depth-merged, one lighting pass.
 """
@@ -32,6 +43,7 @@ from render_engine_tpu_torch.ecs.world import World
 from render_engine_tpu_torch.render import lighting as L
 from render_engine_tpu_torch.render import skybox as SB
 from render_engine_tpu_torch.render.gbuffer import GBuffer
+from render_engine_tpu_torch.utils.consts import const, on_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,8 +203,7 @@ def entity_shade_attrs(world: World, systems: CompiledSystems,
     ms = systems.model_system[mid.clamp(
         0, systems.model_system.shape[0] - 1).long()]
     rows = table[ms.clamp(0, table.shape[0] - 1).long()]
-    identity = torch.tensor([0.0, 1.0, 1.0, 1.0, 1.0, 1.0],
-                            dtype=torch.float32, device=world.device)
+    identity = const((0.0, 1.0, 1.0, 1.0, 1.0, 1.0), device=world.device)
     return torch.where(((ms >= 0) & (mid >= 0))[:, None], rows, identity)
 
 
@@ -201,7 +212,9 @@ class DrawParam:
     to read, and the calls that decide the frame: ``draw_models``,
     ``draw_skybox``, ``write_uniform``. Draws become instance masks and
     uniform writes become this frame's shading rows, both folded into the
-    one fused pass."""
+    one fused pass. Captured once with the frame program (see the module
+    notes): per-frame values come from ``input``, the world and the camera
+    as tensors; a Python value is the captured program's constant."""
 
     def __init__(self, system: RenderSystem, world: World, camera, inputs,
                  bank):
@@ -252,7 +265,7 @@ class DrawParam:
                 sm = sm | (self.world["sortable"] == int(bucket))
             m = m & sm
         if when is not None:
-            m = m & torch.as_tensor(when, dtype=torch.bool, device=m.device)
+            m = m & _bool(when, m.device)
         self._mask = self._mask | m
 
     def draw_skybox(self, on=True):
@@ -283,7 +296,17 @@ class DrawContext:
 
 
 def _f32(value, device):
-    return torch.as_tensor(value, dtype=torch.float32, device=device)
+    """A uniform as a float32 tensor on ``device``: a number or a tuple is
+    a device constant, uploaded once, so inside a captured program it is
+    the value the program was captured with (``consts.on_device``)."""
+    return on_device(value, torch.float32, device)
+
+
+def _bool(value, device):
+    """A gate (a bool or a bool tensor) as a bool tensor on ``device``."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.bool)
+    return on_device(bool(value), torch.bool, device)
 
 
 def run_draw_callbacks(systems: CompiledSystems, world: World, camera,
@@ -337,7 +360,10 @@ class ShadeParam:
     contract and the default-shaded color. Every image-shaped field has the
     path's pixel layout as leading shape, (H, W) on the golden path and the
     tall (NT * th, tw) on the fused one; the function works elementwise and
-    returns ``base_color``'s shape."""
+    returns ``base_color``'s shape. ``uniforms`` hold the values as they
+    were given: a number becomes a tensor through
+    ``utils.consts.on_device`` (an upload inside a captured program is
+    refused)."""
 
     position: torch.Tensor  # (..., 3) world-space position
     normal: torch.Tensor  # (..., 3) world-space normal
@@ -520,9 +546,7 @@ def render_frame_systems(world: World, camera, bank, systems: tuple,
     else:
         background = clear.expand(h, w, 3)
     if skybox_on is not None:
-        background = torch.where(
-            torch.as_tensor(skybox_on, dtype=torch.bool, device=dev),
-            background, clear)
+        background = torch.where(_bool(skybox_on, dev), background, clear)
 
     color = L.shade(gbuf, lights, bank, camera.position,
                     background=background, shadow_factor=shadow_factor)

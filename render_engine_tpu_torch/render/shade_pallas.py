@@ -33,6 +33,7 @@ import torch
 from render_engine_tpu_torch import kernels
 from render_engine_tpu_torch.render.lighting import (DIFFUSE_FLOOR,
                                                      SHININESS, LightArrays)
+from render_engine_tpu_torch.utils import consts
 
 N_LCOL = 28
 MAX_TILE_PIXELS = 1024  # the largest tile K3 takes
@@ -102,7 +103,7 @@ def pack_lights(lights: LightArrays, budget: int, slot_entity=None):
     return table.contiguous(), valid.sum(dtype=torch.int32)
 
 
-@functools.lru_cache(maxsize=8)
+@consts.cached(maxsize=8)
 def _tile_corner_ndc(tiles_x, tiles_y, tile_h, tile_w, width, h_total, y_off,
                      device):
     """(tiles_y + 1, tiles_x + 1, 4) camera-NDC points [x, y, 0.5, 1] of the
@@ -141,8 +142,7 @@ def select_tile_lights(ltab, n_live, camera_position, inv_pv, tiles_x,
     nt = tiles_x * tiles_y
     ll = ltab.shape[0]
     dev = ltab.device
-    cam = torch.as_tensor(camera_position, dtype=torch.float32,
-                          device=dev).reshape(3)
+    cam = consts.on_device(camera_position, device=dev).reshape(3)
 
     # world rays through the tile boundary grid, from the camera
     ndc = _tile_corner_ndc(tiles_x, tiles_y, tile_h, tile_w, width, h_total,
@@ -482,10 +482,10 @@ def fused_shade(rows, s_o, s_t, d_o, d_t, lights: LightArrays,
     th, tw = s_o.shape[1], s_o.shape[2]
     ltab, n_live = pack_lights(lights, light_budget, slot_entity=slot_entity)
     lcount = n_live.reshape(1)
-    cam = torch.as_tensor(camera_position, dtype=torch.float32,
-                          device=dev).reshape(3).contiguous()
+    cam = consts.on_device(camera_position, device=dev).reshape(
+        3).contiguous()
     ipv = inv_pv.to(torch.float32).contiguous()
-    org = torch.tensor(pixel_origin, dtype=torch.float32, device=dev)
+    org = consts.on_device(pixel_origin, device=dev)
     sf = sfi = None
     if slot_factor_tiles is not None:
         sf, sfi = slot_factor_tiles.contiguous(), slot_factor_inv.contiguous()

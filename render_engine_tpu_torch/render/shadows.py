@@ -20,9 +20,10 @@ Differences from the JAX package, none of which changes a value:
   the nine edge-clamped taps straight from ``maps``, which gives the same
   values.
 
-Not ported yet: ``slot_factors`` and ``make_shadow_factor`` (the golden
-``lighting.shade`` path) and ``pack_shadow_state`` / ``unpack_shadow_state``
-(the TPU's packed jit boundary).
+``pack_shadow_state`` / ``unpack_shadow_state`` (the JAX Engine's packed
+program boundary) have no counterpart: the port's Engine keeps the four
+tables as static buffers that its captured programs read and write
+(``runtime/engine.py``), and the schedule's two integers on the host.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from render_engine_tpu_torch.render.geometry import (build_triangle_batch,
 from render_engine_tpu_torch.render.raster_jnp import RasterConfig
 from render_engine_tpu_torch.render.raster_pallas import (
     rasterize_depth_winner_pallas)
+from render_engine_tpu_torch.utils.consts import const
+from render_engine_tpu_torch.utils.indexing import gather_row
 from render_engine_tpu_torch.world import culling
 
 SHADOW_BUDGET = 6
@@ -54,17 +57,6 @@ _FACE_UPS = ((0, -1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1), (0, -1, 0),
 # the 3x3 PCF neighborhood, row-major
 _TAP_DY = (-1, -1, -1, 0, 0, 0, 1, 1, 1)
 _TAP_DX = (-1, 0, 1, -1, 0, 1, -1, 0, 1)
-
-_CONSTS: dict = {}
-
-
-def _const(name: str, values, dtype, device) -> torch.Tensor:
-    """A small constant table, uploaded once per device."""
-    key = (name, torch.device(device))
-    t = _CONSTS.get(key)
-    if t is None:
-        t = _CONSTS[key] = torch.tensor(values, dtype=dtype, device=device)
-    return t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +97,14 @@ def create_shadow_state(resolution: int = SHADOW_RES,
 # ---------------------------------------------------------------------------
 # light cameras
 # ---------------------------------------------------------------------------
+def _device_index(i, device) -> torch.Tensor:
+    """An int64 index tensor on ``device`` (a tensor passes through, so a
+    frame's indices stay on the device)."""
+    if isinstance(i, torch.Tensor):
+        return i.to(device=device, dtype=torch.long)
+    return torch.as_tensor(i, device=device).long()
+
+
 def light_proj_view(world, entity, ortho_extent: float | None = None,
                     near: float = 1.0, far: float | None = None,
                     face=0) -> torch.Tensor:
@@ -116,15 +116,14 @@ def light_proj_view(world, entity, ortho_extent: float | None = None,
     > 0 gives ortho half-extent r and far 2r, perspective far r; lights
     without a radius keep a 200/600 box."""
     dev = world.device
-    e = torch.as_tensor(entity, device=dev).clamp(0, world.capacity - 1) \
-        .long()
-    pos = world["position"][e]
-    sortable = world["sortable"][e]
+    e = _device_index(entity, dev).clamp(0, world.capacity - 1)
+    pos = gather_row(world["position"], e)
+    sortable = gather_row(world["sortable"], e)
     is_dir = sortable == R.SORTABLE_DIRECTIONAL
     is_point = sortable == R.SORTABLE_POINT
     f32 = dict(dtype=torch.float32, device=dev)
 
-    radius = world["light_radius"][e]
+    radius = gather_row(world["light_radius"], e)
     has_r = radius > 0.0
     if ortho_extent is None:
         ortho_extent = torch.where(has_r, radius, 200.0)
@@ -137,26 +136,25 @@ def light_proj_view(world, entity, ortho_extent: float | None = None,
     ortho_far = torch.clamp(ortho_far, min=near + 1.0)
     persp_far = torch.clamp(persp_far, min=near + 1.0)
 
-    direction = world["light_direction"][e]
+    direction = gather_row(world["light_direction"], e)
     dlen = torch.linalg.vector_norm(direction)
     direction = torch.where(dlen > 1e-6, direction / dlen.clamp(min=1e-6),
-                            _const("down", (0.0, -1.0, 0.0), torch.float32,
-                                   dev))
-    face = torch.as_tensor(face, device=dev).long()
+                            const((0.0, -1.0, 0.0), device=dev))
+    face = _device_index(face, dev)
     direction = torch.where(
-        is_point, _const("faces", _FACE_DIRS, torch.float32, dev)[face],
+        is_point, gather_row(const(_FACE_DIRS, device=dev), face),
         direction)
     up = torch.where(direction[1].abs() > 0.99,
-                     _const("x", (1.0, 0.0, 0.0), torch.float32, dev),
-                     _const("y", (0.0, 1.0, 0.0), torch.float32, dev))
+                     const((1.0, 0.0, 0.0), device=dev),
+                     const((0.0, 1.0, 0.0), device=dev))
     up = torch.where(is_point,
-                     _const("ups", _FACE_UPS, torch.float32, dev)[face], up)
+                     gather_row(const(_FACE_UPS, device=dev), face), up)
     view = T.look_at(pos, pos + direction, up)
 
-    fov = torch.clamp(world["light_fov"][e], 0.2, 3.0)
+    fov = torch.clamp(gather_row(world["light_fov"], e), 0.2, 3.0)
     # spot cameras widen to the outer cutoff cone, so everything the cone
     # lights can be shadowed; a cutoff of 0 (unset) keeps light_fov
-    cos_outer = world["light_cutoff"][e][1]
+    cos_outer = gather_row(world["light_cutoff"], e)[1]
     cone_fov = 2.0 * torch.arccos(torch.clamp(cos_outer, -0.999, 0.999)) \
         * 1.05
     fov = torch.where((cos_outer > 1e-3) & ~is_dir & ~is_point,
@@ -178,7 +176,7 @@ def casters_outside_volume(world, light_entity, proj_view) -> torch.Tensor:
     count zero (their six faces cover the sphere)."""
     cap = world.capacity
     dev = world.device
-    e = torch.as_tensor(light_entity, device=dev).clamp(0, cap - 1).long()
+    e = _device_index(light_entity, dev).clamp(0, cap - 1)
     pos = world["position"][e]
     radius = world["light_radius"][e]
     radius = torch.where(radius > 0.0, radius, 200.0)
@@ -227,7 +225,7 @@ def choose_light(shadow: ShadowState, world, camera_position):
     unmapped = candidate & (owned < needed)
     any_unmapped = unmapped.any()
     pick_new = unmapped.to(torch.int8).argmax()  # first unmapped light
-    pick_face = owned[pick_new]  # next cube face of a point light
+    pick_face = gather_row(owned, pick_new)  # next cube face of a point light
 
     # eviction: slots whose light left the neighborhood free up
     slot_ok = candidate[slot_ent.clamp(0, cap - 1).long()] & (slot_ent >= 0)
@@ -327,8 +325,8 @@ def _pcf(maps, res: int, nx, ny, z, inside):
     # read a clamped texel and are masked to lit below)
     ui = torch.round(u).clamp(-1.0, float(res)).to(torch.int32)
     vi = torch.round(v).clamp(-1.0, float(res)).to(torch.int32)
-    dy = _const("tap_dy", _TAP_DY, torch.int32, dev)
-    dx = _const("tap_dx", _TAP_DX, torch.int32, dev)
+    dy = const(_TAP_DY, torch.int32, dev)
+    dx = const(_TAP_DX, torch.int32, dev)
     ty = (vi.clamp(0, res - 1)[..., None] + dy).clamp(0, res - 1)
     tx = (ui.clamp(0, res - 1)[..., None] + dx).clamp(0, res - 1)
     flat = ty * res + tx

@@ -12,12 +12,13 @@ camera ray: ``sample_cubemap`` takes four taps from (6, S, S, 3) faces,
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
 from render_engine_tpu_torch.math import transforms as T
+from render_engine_tpu_torch.utils import consts
+from render_engine_tpu_torch.utils.consts import const
 
 SPACE_BASE_COLOR = (0.004, 0.005, 0.012)
 
@@ -48,8 +49,7 @@ def starfield_background(camera, stars: Starfield, height: int, width: int,
     dx = stars.dirs @ right
     dy = stars.dirs @ up
     dz = stars.dirs @ fwd
-    t = torch.tan(0.5 * torch.tensor(camera.fov_y, dtype=torch.float32,
-                                     device=dev))
+    t = torch.tan(0.5 * const(float(camera.fov_y), device=dev))
     safe = torch.where(dz > 1e-6, dz, torch.ones_like(dz))
     ndc_x = dx / (safe * t * camera.aspect)
     ndc_y = dy / (safe * t)
@@ -62,7 +62,7 @@ def starfield_background(camera, stars: Starfield, height: int, width: int,
     ok = (dz > 1e-6) & (px >= 0) & (px < width - 1) & (py >= 0) \
         & (py < height - 1)
     n_px = height * width
-    bg = torch.tensor(base_color, dtype=torch.float32, device=dev).expand(
+    bg = const(tuple(map(float, base_color)), device=dev).expand(
         n_px + 1, 3).clone()  # last row absorbs the dropped splats
     for oy in (0, 1):
         for ox in (0, 1):
@@ -76,13 +76,13 @@ def starfield_background(camera, stars: Starfield, height: int, width: int,
 
 def _camera_basis(camera, device):
     fwd = camera.direction()
-    up0 = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=device)
+    up0 = const((0.0, 1.0, 0.0), device=device)
     right = T.cross(fwd, up0)
     right = right / torch.linalg.vector_norm(right)
     return fwd, right, T.cross(right, fwd)
 
 
-@functools.lru_cache(maxsize=8)
+@consts.cached(maxsize=8)
 def _pixel_center_ndc(n: int, device) -> torch.Tensor:
     """(i + 0.5) / n * 2 - 1 for the n pixel centers of one axis, computed
     on the host: numpy rounds the division like the JAX package (CUDA
@@ -97,8 +97,7 @@ def pixel_ray_directions(camera, height: int, width: int) -> torch.Tensor:
     (H, W, 3)."""
     dev = camera.device
     fwd, right, up = _camera_basis(camera, dev)
-    t = torch.tan(0.5 * torch.tensor(camera.fov_y, dtype=torch.float32,
-                                     device=dev))
+    t = torch.tan(0.5 * const(float(camera.fov_y), device=dev))
     x_ndc = _pixel_center_ndc(width, dev)
     y_ndc = -_pixel_center_ndc(height, dev)
     d = (fwd[None, None]
@@ -216,6 +215,5 @@ def background_for(camera, cubemap, height: int, width: int,
     if cubemap is not None:
         return sample_cubemap(
             cubemap, pixel_ray_directions(camera, height, width))
-    return torch.tensor(clear_color, dtype=torch.float32,
-                        device=camera.device).expand(height, width,
-                                                     3).clone()
+    return const(tuple(map(float, clear_color)),
+                 device=camera.device).expand(height, width, 3).clone()

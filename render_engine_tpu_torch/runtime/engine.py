@@ -1,31 +1,69 @@
-"""The Engine: owns world, camera and bank on one device; drives frames.
+"""The Engine: owns world, camera and bank on one device; drives frames
+through captured programs.
 
 Port of ``render_engine_tpu/runtime/engine.py``: ``finalize_scene``,
 ``frame()`` (the step, then the shadow-map update, then the render of the
-stepped state with the updated maps, as the JAX package's fused frame
-program does), ``render`` / ``render_only``, ``reset``, the burst loops
-``run_frames`` and ``run_frames_rendered``, the recorded config events
+stepped state with the updated maps), ``step``, ``update_shadows``,
+``render`` / ``render_only``, ``reset``, the bursts ``run_frames`` and
+``run_frames_rendered``, the recorded config events
 (``set_draw_distances``, ``set_window``), history recording with
 ``flush_history`` (runtime/history.py; replayed by runtime/replay.py),
-``drop_stats`` with ``render_drop_stats``, and ``fps_stats``. PyTorch runs
-eagerly, so there is no compiled program to build: ``frame`` calls the
-step, ``render_shadow_map`` and ``render_frame`` directly, and hands the
-frame's inputs to the render systems' draw callbacks on every route.
+``drop_stats`` with ``render_drop_stats``, and ``fps_stats``.
+
+The programs. The JAX package compiles the step (``_step``), the render
+(``_render``, ``_render_shadowed``) and the whole frame (``_frame_fused``:
+step, shadow-map update and render) into XLA programs over donated world
+and shadow buffers; per-frame values cross the boundary as one packed f32
+input vector and the (8,) camera vector, so a frame is one dispatch.
+``_build_step`` and ``_build_render`` build the same programs here, as
+functions over a ``ProgramState``: static buffers for the world columns,
+the camera vector, the shadow maps and tables, the packed inputs, the drop
+counters and the image. A program reads them and copies its results back
+into them (JAX's donation). On a CUDA device each program is captured once
+as a ``torch.cuda.CUDAGraph`` and replayed every frame: a frame is one
+pinned, non-blocking copy of ``InputState.pack_with_dt`` into the packed
+buffer, the replays, and a clone of the image. On the CPU the same
+functions run eagerly. There is no other route on the card: a program
+that cannot be captured raises.
+
+What a program may depend on. A graph replays the device work it saw at
+capture: Python values read while the program was built or captured (the
+camera's and the render settings' static fields, the schedule's slot, a
+number a draw callback writes) are constants of that program. Per-frame
+values reach a program only through the packed input vector and the
+camera vector; draw callbacks and custom shading functions are captured
+once, as JAX traces them once (``render/render_system.py``). The shadow
+schedule's interval gate and round-robin slot stay host decisions, as in
+the eager port (``render/shadows.py``): each decision met is a program
+variant of its own, keyed ``"skip"`` or by the slot, so the headline's
+interval 3 and 2 slots give at most three frame programs.
+
+Invalidation, as the JAX package re-jits: a new step, bank or camera
+configuration (``finalize_scene``, ``set_window``, ``set_draw_distances``)
+drops every program; a new render configuration (``set_skybox``,
+``set_atlas``, ``set_render_systems``, a changed ``config.render`` or
+``compiled_systems``) drops the programs that render. ``reset`` keeps them
+all unless the settings it restores differ. ``captured_programs`` lists
+the keys of the programs held.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
 import numpy as np
 import torch
 
+from render_engine_tpu_torch import kernels
 from render_engine_tpu_torch.ecs import world as W
 from render_engine_tpu_torch.logic import kinematics as K
-from render_engine_tpu_torch.logic.step import (make_step, pack_drop_stats,
+from render_engine_tpu_torch.logic.step import (STEP_DROP_KEYS, make_step,
+                                                pack_drop_stats,
                                                 unpack_drop_stats)
-from render_engine_tpu_torch.logic.types import NUM_KEYS, InputState
+from render_engine_tpu_torch.logic.types import (NUM_KEYS, PACKED_INPUT_LEN,
+                                                 InputState)
 from render_engine_tpu_torch.math import transforms as T
 from render_engine_tpu_torch.math.camera import Camera, CameraBuilder
 from render_engine_tpu_torch.models.bank import ModelBank, ModelBankBuilder
@@ -33,15 +71,123 @@ from render_engine_tpu_torch.render import lighting as LG
 from render_engine_tpu_torch.render import raster_pallas as RP
 from render_engine_tpu_torch.render import shade_pallas as SP
 from render_engine_tpu_torch.render import shadows as SH
-from render_engine_tpu_torch.render.frame import (render_frame,
+from render_engine_tpu_torch.render.frame import (RenderSettings,
+                                                  render_frame,
                                                   shadow_tile_overflow)
 from render_engine_tpu_torch.render.geometry import (build_triangle_batch,
                                                      to_screen)
 from render_engine_tpu_torch.render.raster_jnp import _bin_triangles
 from render_engine_tpu_torch.runtime.config import EngineConfig
 from render_engine_tpu_torch.runtime.history import HistoryLog
+from render_engine_tpu_torch.utils import consts
 
 _CAMERA_EVENT_KEYS = ("draw_distance", "near", "far", "fov_y")
+_CAMERA_STATIC = ("fov_y", "aspect", "near", "far", "draw_distance",
+                  "projection_kind", "ortho_half_extent", "movement_factor")
+_STAGING = 4  # pinned input buffers in flight
+# the snapshots (Engine.world, .camera, .shadow_state) each program changes
+_WRITES = {"step": ("world", "camera"),
+           "frame": ("world", "camera", "shadow"),
+           "render_shadowed": ("shadow",), "shadows": ("shadow",),
+           "render": ()}
+
+
+@dataclasses.dataclass
+class ProgramState:
+    """The buffers every program reads and writes in place (the JAX
+    package's donated arguments): ``world``'s columns, the camera vector
+    ``camv`` (8,), the shadow tables ``shadow`` (maps, light_mats,
+    slot_entity, slot_face; None without shadows), this frame's ``packed``
+    inputs, the camera vector ``view`` a render-only program draws
+    through, the step's ``drops`` (6,) int32 and the last ``image``."""
+
+    world: W.World
+    camv: torch.Tensor
+    shadow: tuple | None
+    packed: torch.Tensor
+    view: torch.Tensor
+    drops: torch.Tensor
+    image: torch.Tensor | None = None
+
+    def clone(self) -> "ProgramState":
+        def c(t):
+            return None if t is None else t.clone()
+        return ProgramState(
+            world=self.world.clone(), camv=c(self.camv),
+            shadow=(None if self.shadow is None
+                    else tuple(t.clone() for t in self.shadow)),
+            packed=c(self.packed), view=c(self.view), drops=c(self.drops),
+            image=c(self.image))
+
+
+def _store(dst: torch.Tensor, src: torch.Tensor):
+    if dst is not src:
+        dst.copy_(src)
+
+
+def _store_world(dst: W.World, src: W.World):
+    _store(dst.alive, src.alive)
+    _store(dst.comp_mask, src.comp_mask)
+    for name, col in dst.comps.items():
+        _store(col, src.comps[name])
+
+
+def _same_layout(a, b) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and a.device == b.device)
+
+
+def _camera_meta(camera: Camera) -> tuple:
+    """The camera's static configuration: constants of every program."""
+    return tuple((k, getattr(camera, k)) for k in _CAMERA_STATIC)
+
+
+def _same(a: tuple, b) -> bool:
+    """Element-wise: the same object, or an equal plain value (tensors and
+    other objects by identity)."""
+    return b is not None and len(a) == len(b) and all(
+        x is y or (type(x) is type(y)
+                   and isinstance(x, (int, float, str, tuple,
+                                      RenderSettings)) and x == y)
+        for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def _sync_errors():
+    """Raise, with its line, on any operation that waits for the device."""
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def _packed(inputs: InputState) -> np.ndarray:
+    """``pack_with_dt`` of host or tensor inputs (dt 0: a render reads
+    none)."""
+    def host(v):
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+    return InputState(keys=host(inputs.keys),
+                      mouse_delta=host(inputs.mouse_delta),
+                      rng_seed=int(host(inputs.rng_seed)),
+                      prev_keys=host(inputs.prev_keys)).pack_with_dt(0.0)
+
+
+class _Program:
+    """One program: ``run`` replays its graph (or, on the CPU, runs its
+    function); ``launches`` are the kernel launches its capture counted,
+    added to ``kernels.LAUNCHES`` on every replay; ``keep`` holds the
+    cached constants its graph reads."""
+
+    def __init__(self, run, launches: dict, keep: list, seconds: float):
+        self.run, self.launches, self.keep = run, launches, keep
+        self.seconds = seconds
+
+    def __call__(self):
+        self.run()
+        for k, n in self.launches.items():
+            kernels.LAUNCHES[k] += n
 
 
 class Engine:
@@ -56,16 +202,44 @@ class Engine:
             capacity=config.capacity, world_min=config.world_min,
             world_length=config.world_length,
             section_length=config.section_length, registry=config.registry)
-        self.world = W.create_world(self.world_config, self.device)
-        self.camera = (camera or CameraBuilder().build()).to(self.device)
+        dev = self.device
+        self.bank: ModelBank | None = None
+        self._step_fn = None  # no programs before finalize_scene
+        self._views: dict = {}
+        # the packed inputs' host side: on a card a ring of pinned buffers,
+        # each copied to the device buffer once; on the CPU the buffer's
+        # own memory
+        self._stage = []
+        self._stage_at = 0
+        if dev.type == "cuda":
+            self._stage = [(torch.zeros(PACKED_INPUT_LEN).pin_memory(),
+                            torch.cuda.Event()) for _ in range(_STAGING)]
+            packed = torch.zeros(PACKED_INPUT_LEN, device=dev)
+        else:
+            self._packed_host = np.zeros(PACKED_INPUT_LEN, np.float32)
+            packed = torch.from_numpy(self._packed_host)
+        self._state = ProgramState(
+            world=W.create_world(self.world_config, dev),
+            camv=torch.zeros(8, device=dev), shadow=None, packed=packed,
+            view=torch.zeros(8, device=dev),
+            drops=torch.zeros(len(STEP_DROP_KEYS), dtype=torch.int32,
+                              device=dev))
+        # the per-counter max over a burst (runs outside the programs)
+        self._burst_drops = torch.zeros_like(self._state.drops)
+        self._cam_template: Camera | None = None
+        self.camera = (camera or CameraBuilder().build()).to(dev)
+        # the shadow schedule's host integers (render/shadows.py)
+        self._sh_cursor = self._sh_tick = 0
+        self._sh_config = None  # (resolution, pcf_scale)
+        self._programs: dict = {}
+        self._baked = (None, None)
+        self._pool = None
         self.bank_builder = (
             ModelBankBuilder(lov_fractions=tuple(config.lov_fractions))
             if config.lov_fractions is not None else ModelBankBuilder())
-        self.bank: ModelBank | None = None
         self.cubemap = None
         self.atlas = None
         self.compiled_systems = None
-        self.shadow_state: SH.ShadowState | None = None
         self.history = HistoryLog()
         self.frame_index = 0
         self._prev_keys = np.zeros(NUM_KEYS, bool)
@@ -75,6 +249,85 @@ class Engine:
             config.build_scene(self)
         self.finalize_scene()
 
+    # -- the state the programs hold ---------------------------------------
+    def _view(self, name: str, make):
+        """A snapshot of the static buffers, kept until a program or a
+        setter changes what it shows (a caller may keep it across frames;
+        the next frame writes the buffers in place)."""
+        v = self._views.get(name)
+        if v is None:
+            v = self._views[name] = make()
+        return v
+
+    @property
+    def world(self) -> W.World:
+        """A copy of the world in the static buffers."""
+        return self._view("world", self._state.world.clone)
+
+    @world.setter
+    def world(self, value: W.World):
+        cur = self._state.world
+        cols = [("alive", cur.alive, value.alive),
+                ("comp_mask", cur.comp_mask, value.comp_mask)] + [
+            (k, c, value.comps.get(k)) for k, c in cur.comps.items()]
+        if len(value.comps) == len(cur.comps) and all(
+                v is not None and _same_layout(c, v) for _, c, v in cols):
+            for _, c, v in cols:
+                c.copy_(v)
+        else:  # another layout: new buffers, and the programs go stale
+            self._state.world = value.clone()
+        self._views.pop("world", None)
+        self._refresh_programs()
+
+    @property
+    def camera(self) -> Camera:
+        """The engine camera: its static configuration and a copy of the
+        camera vector."""
+        return self._view("camera", lambda: self._cam_template
+                          .apply_serialized(self._state.camv.clone()))
+
+    @camera.setter
+    def camera(self, value: Camera):
+        value = value.to(self.device)
+        self._cam_template = value
+        self._state.camv.copy_(value.serialize())
+        self._views.pop("camera", None)
+        self._refresh_programs()
+
+    @property
+    def shadow_state(self) -> SH.ShadowState | None:
+        """A copy of the shadow state: the tables in the static buffers and
+        the schedule's host integers."""
+        b = self._state.shadow
+        if b is None:
+            return None
+        return self._view("shadow", lambda: self._shadow_view(
+            tuple(t.clone() for t in b), self._sh_cursor, self._sh_tick))
+
+    @shadow_state.setter
+    def shadow_state(self, value: SH.ShadowState | None):
+        if value is None:
+            self._state.shadow = self._sh_config = None
+        else:
+            new = (value.maps, value.light_mats, value.slot_entity,
+                   value.slot_face)
+            cur = self._state.shadow
+            if cur is not None and all(_same_layout(c, v)
+                                       for c, v in zip(cur, new)):
+                for c, v in zip(cur, new):
+                    c.copy_(v)
+            else:
+                self._state.shadow = tuple(t.clone() for t in new)
+            self._sh_cursor, self._sh_tick = value.cursor, value.tick
+            self._sh_config = (value.resolution, value.pcf_scale)
+        self._views.pop("shadow", None)
+        self._refresh_programs()
+
+    def _shadow_view(self, tables, cursor=0, tick=0) -> SH.ShadowState:
+        res, pcf = self._sh_config
+        return SH.ShadowState(*tables, cursor=cursor, tick=tick,
+                              resolution=res, pcf_scale=pcf)
+
     # -- scene setup -------------------------------------------------------
     def spawn(self, count: int, **components):
         self.world, idx = W.spawn_host(self.world, count, **components)
@@ -82,17 +335,21 @@ class Engine:
 
     def set_skybox(self, cubemap):
         self.cubemap = cubemap
+        self._refresh_programs()
 
     def set_atlas(self, atlas):
         self.atlas = atlas
+        self._refresh_programs()
 
     def set_render_systems(self, systems):
         self.config.render_systems = systems
+        self._refresh_programs()
 
     def finalize_scene(self):
         """Freeze the model bank, refresh every AABB, take the history
         baseline, compile the render systems and the step, create the
-        shadow state, and snapshot the initial state."""
+        shadow state, snapshot the initial state and build the programs
+        (captured lazily, at their first frame)."""
         if self.bank is None:
             if not self.bank_builder._models:
                 from render_engine_tpu_torch.models import primitives
@@ -100,9 +357,9 @@ class Engine:
                 self.bank_builder.add_model("__placeholder__",
                                             primitives.cube(1.0))
             self.bank = self.bank_builder.finalize(self.device)
-        self.world = K.refresh_transforms(self.world, self.bank.aabb_min,
-                                          self.bank.aabb_max,
-                                          self.world.alive)
+        w = self._state.world
+        self.world = K.refresh_transforms(w, self.bank.aabb_min,
+                                          self.bank.aabb_max, w.alive)
         # the baseline is the refreshed world: the Player uses it verbatim
         self._start_history()
         cfg = self.config
@@ -121,32 +378,32 @@ class Engine:
             if callable(rs):
                 rs = rs(self.bank)
             self.compiled_systems = compile_systems(tuple(rs), self.bank)
-        if cfg.enable_shadows:
-            self.shadow_state = SH.create_shadow_state(
-                cfg.shadow_resolution, budget=cfg.shadow_slots,
-                pcf_scale=cfg.shadow_pcf_scale, device=self.device)
-        self._initial_state = (
-            self.world.clone(), self.camera,
-            None if self.shadow_state is None else self.shadow_state.clone(),
-            cfg.render)
+        self.shadow_state = (SH.create_shadow_state(
+            cfg.shadow_resolution, budget=cfg.shadow_slots,
+            pcf_scale=cfg.shadow_pcf_scale, device=self.device)
+            if cfg.enable_shadows else None)
+        self._initial_state = (self.world, self.camera, self.shadow_state,
+                               cfg.render)
+        self._refresh_programs()
 
     def _start_history(self):
         self.history = HistoryLog()
         if self.config.record_history:
             self.history.set_baseline(
-                self.world, self.camera,
+                self._state.world, self.camera,
                 meta={"engine": "render_engine_tpu_torch",
                       "capacity": self.config.capacity})
 
     def reset(self):
         """Back to the post-finalize state at frame zero: world, camera
         (its draw distances too), shadow state and render settings, with a
-        fresh history baseline."""
+        fresh history baseline. The programs stay; those whose settings
+        the restore changes are captured again."""
         w0, c0, s0, r0 = self._initial_state
-        self.world = w0.clone()
-        self.camera = c0
-        self.shadow_state = None if s0 is None else s0.clone()
         self.config.render = r0
+        self.world = w0
+        self.camera = c0
+        self.shadow_state = s0
         self._start_history()
         self.frame_index = 0
         self._prev_keys = np.zeros(NUM_KEYS, bool)
@@ -158,13 +415,15 @@ class Engine:
     def apply_config_event(self, event: dict):
         cam = {k: float(v) for k, v in event.items()
                if k in _CAMERA_EVENT_KEYS}
+        camera = self.camera
         if cam:
-            self.camera = dataclasses.replace(self.camera, **cam)
+            camera = dataclasses.replace(camera, **cam)
         if "window" in event:
             w, h = (int(v) for v in event["window"])
             self.config.render = dataclasses.replace(self.config.render,
                                                      width=w, height=h)
-            self.camera = dataclasses.replace(self.camera, aspect=w / h)
+            camera = dataclasses.replace(camera, aspect=w / h)
+        self.camera = camera
 
     def _change_config(self, event: dict):
         self.apply_config_event(event)
@@ -180,61 +439,285 @@ class Engine:
 
     def set_window(self, width: int, height: int):
         """Change the render resolution and the camera's aspect mid-run
-        (recorded). The step does not read either."""
+        (recorded). The step reads the aspect through the camera's
+        frustum, so every program is captured again."""
         self._change_config({"window": [int(width), int(height)]})
+
+    # -- the programs --------------------------------------------------------
+    def _deps(self):
+        """What the step programs and the render programs bake in."""
+        c = self.config
+        st = self._state
+        step = (self._step_fn, self.bank, _camera_meta(self._cam_template),
+                st.world, torch.are_deterministic_algorithms_enabled())
+        render = step + (c.render, self.cubemap, self.atlas,
+                         self.compiled_systems, c.render_systems,
+                         c.shadow_max_tris, c.shadow_lov_bias,
+                         c.shadow_caster_mask,
+                         st.shadow and st.shadow[0], self._sh_config)
+        return step, render
+
+    def _refresh_programs(self):
+        """Drop the programs whose baked configuration changed and build
+        their functions again (the JAX package re-jits)."""
+        if self._step_fn is None:
+            return
+        step, render = self._deps()
+        if not _same(step, self._baked[0]):
+            self._programs.clear()
+            self._build_step()
+            self._build_render()
+        elif not _same(render, self._baked[1]):
+            for key in [k for k in self._programs if k[0] != "step"]:
+                del self._programs[key]
+            self._build_render()
+        self._baked = (step, render)
+
+    @property
+    def captured_programs(self) -> frozenset:
+        """The keys of the programs held: ``("step",)``, ``("frame",
+        v)``, ``("render_shadowed", v)``, ``("shadows", slot)`` and
+        ``("render", camera configuration, with inputs)``, where ``v`` is
+        the shadow schedule's decision (None without shadows, ``"skip"``,
+        or the slot a map frame renders). Programs whose configuration
+        changed are dropped first."""
+        self._refresh_programs()
+        return frozenset(self._programs)
+
+    def _build_step(self):
+        """The step program ``_step``: one tick of the world and the
+        camera vector, with the step's drop counters."""
+        step, bank, cam0 = self._step_fn, self.bank, self._cam_template
+
+        def advance(st):
+            camera = cam0.apply_serialized(st.camv)
+            inputs, dt = InputState.unpack_with_dt(st.packed)
+            world, camera, stats = step(st.world, camera, inputs, dt,
+                                        bank.aabb_min, bank.aabb_max)
+            return world, camera, inputs, pack_drop_stats(stats)
+
+        def step_only(st):
+            world, camera, _, drops = advance(st)
+            _store_world(st.world, world)
+            _store(st.camv, camera.serialize())
+            _store(st.drops, drops)
+
+        self._advance = advance
+        self._step = step_only
+
+    def _build_render(self):
+        """The programs that render: ``_render`` (the current state through
+        a camera vector, the maps as they are), ``_render_shadowed`` (after
+        a step: the shadow update, then the render), ``_update_shadow``
+        (the update alone) and ``_frame_fused`` (step, update and render).
+        Allocates the static image at the settings' size."""
+        bank, settings = self.bank, self.config.render
+        cubemap, atlas, systems = self.cubemap, self.atlas, \
+            self.compiled_systems
+        cfg, cam0, advance = self.config, self._cam_template, self._advance
+        shadowed = self._state.shadow is not None
+        self._state.image = torch.zeros((settings.height, settings.width, 3),
+                                        device=self.device)
+
+        def update(st, variant, world, camera):
+            """The shadow state after this frame's update: ``variant`` is
+            the schedule's decision (``"skip"`` or the round-robin slot)."""
+            if not shadowed:
+                return None
+            sh = self._shadow_view(st.shadow, cursor=(
+                variant if isinstance(variant, int) else 0))
+            if not isinstance(variant, int):
+                return sh
+            return SH._render_shadow_map_now(
+                sh, world, camera, bank, max_tris=cfg.shadow_max_tris,
+                lov_bias=cfg.shadow_lov_bias,
+                caster_mask=cfg.shadow_caster_mask)
+
+        def store_shadow(st, sh):
+            if sh is not None:
+                for dst, src in zip(st.shadow, (sh.maps, sh.light_mats,
+                                                sh.slot_entity,
+                                                sh.slot_face)):
+                    _store(dst, src)
+
+        def draw(st, world, camera, sh, inputs):
+            st.image.copy_(render_frame(
+                world, camera, bank, settings, cubemap=cubemap, atlas=atlas,
+                shadow_state=sh, systems=systems, inputs=inputs))
+
+        def render_view(st, meta, with_inputs):
+            camera = dataclasses.replace(cam0, **dict(meta))
+            inputs = (InputState.unpack_with_dt(st.packed)[0]
+                      if with_inputs else None)
+            draw(st, st.world, camera.apply_serialized(st.view),
+                 update(st, "skip", None, None), inputs)
+
+        def render_shadowed(st, variant):
+            camera = cam0.apply_serialized(st.camv)
+            sh = update(st, variant, st.world, camera)
+            draw(st, st.world, camera, sh,
+                 InputState.unpack_with_dt(st.packed)[0])
+            store_shadow(st, sh)
+
+        def update_shadow(st, variant):
+            store_shadow(st, update(st, variant, st.world,
+                                    cam0.apply_serialized(st.camv)))
+
+        def frame_fused(st, variant):
+            world, camera, inputs, drops = advance(st)
+            sh = update(st, variant, world, camera)
+            img = render_frame(world, camera, bank, settings, cubemap=cubemap,
+                               atlas=atlas, shadow_state=sh, systems=systems,
+                               inputs=inputs)
+            _store_world(st.world, world)
+            _store(st.camv, camera.serialize())
+            _store(st.drops, drops)
+            store_shadow(st, sh)
+            st.image.copy_(img)
+
+        self._render = render_view
+        self._render_shadowed = render_shadowed
+        self._update_shadow = update_shadow
+        self._frame_fused = frame_fused
+
+    def program_function(self, key: tuple):
+        """The function of the program ``key`` (see ``captured_programs``):
+        ``fn(state)`` reads and writes a ``ProgramState``. Called directly
+        it runs eagerly (the card's references)."""
+        self._refresh_programs()
+        name, *args = key
+        fn = {"step": self._step, "frame": self._frame_fused,
+              "render_shadowed": self._render_shadowed,
+              "shadows": self._update_shadow, "render": self._render}[name]
+        return lambda st: fn(st, *args)
+
+    def _capture(self, key: tuple) -> _Program:
+        """Build the program ``key``: on the CPU its function; on a card a
+        graph captured after two warm-up runs on a side stream over a copy
+        of the state (the first builds the kernels and uploads the cached
+        constants; the second, like the capture, runs with every operation
+        that waits for the device raising)."""
+        fn = self.program_function(key)
+        if self.device.type != "cuda":
+            return _Program(lambda: fn(self._state), {}, [], 0.0)
+        with torch.cuda.device(self.device):
+            return self._capture_graph(fn)
+
+    def _capture_graph(self, fn) -> _Program:
+        t0 = time.perf_counter()
+        counted = dict(kernels.LAUNCHES)
+        scratch = self._state.clone()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            fn(scratch)
+            with _sync_errors():
+                fn(scratch)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        if not self._programs:
+            # a private pool lives while a graph uses it: the programs
+            # share one, and a new one follows the last program dropped
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        keep: list = []
+        mark = dict(kernels.LAUNCHES)
+        with torch.cuda.graph(graph, pool=self._pool):
+            with _sync_errors(), consts.holding(keep):
+                fn(self._state)
+        launches = {k: n - mark.get(k, 0)
+                    for k, n in kernels.LAUNCHES.items()
+                    if n != mark.get(k, 0)}
+        # warm-up and capture run nothing of the frame
+        kernels.LAUNCHES.update(counted)
+        return _Program(graph.replay, launches, keep,
+                        time.perf_counter() - t0)
+
+    def _program(self, key: tuple):
+        """The program ``key``, captured at its first use."""
+        self._refresh_programs()
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = self._capture(key)
+        return prog
+
+    def _replay(self, key: tuple):
+        self._program(key)()
+        for name in _WRITES[key[0]]:
+            self._views.pop(name, None)
+
+    def capture_seconds(self) -> dict:
+        """Seconds each held program took to warm up and capture."""
+        return {k: p.seconds for k, p in self._programs.items()}
+
+    def _feed(self, packed: np.ndarray):
+        """This frame's packed inputs into the static buffer: on a card one
+        non-blocking copy from a pinned buffer of a small ring (a buffer is
+        written again only after its last copy ran)."""
+        if not self._stage:
+            self._packed_host[:] = packed
+            return
+        self._stage_at = (self._stage_at + 1) % len(self._stage)
+        buf, copied = self._stage[self._stage_at]
+        copied.synchronize()
+        buf.numpy()[:] = packed
+        self._state.packed.copy_(buf, non_blocking=True)
+        copied.record(torch.cuda.current_stream(self.device))
+
+    def _shadow_decision(self):
+        """The shadow update's host decision, advancing the schedule as
+        ``render/shadows.py``'s ``render_shadow_map`` does: None without
+        shadows, ``"skip"`` where the interval gate skips, else the
+        round-robin slot of this map frame."""
+        if self._state.shadow is None:
+            return None
+        self._views.pop("shadow", None)
+        tick = self._sh_tick
+        self._sh_tick += 1
+        interval = self.config.shadow_update_interval
+        if interval > 1 and tick % interval != 0:
+            return "skip"
+        slot = self._sh_cursor % self._state.shadow[2].shape[0]
+        self._sh_cursor += 1
+        return slot
 
     # -- frame loop ----------------------------------------------------------
     def step(self, inputs: InputState, dt: float):
-        """Advance the world one tick (no render)."""
-        self._step_device(inputs.to_device(self.device), dt)
-
-    def _step_device(self, inputs: InputState, dt: float):
-        self.world, self.camera, stats = self._step_fn(
-            self.world, self.camera, inputs, dt, self.bank.aabb_min,
-            self.bank.aabb_max)
-        self._last_drops = pack_drop_stats(stats)
+        """Advance the world one tick (no render). ``inputs``: host inputs
+        with their ``prev_keys`` as the caller sets them."""
+        self._feed(inputs.pack_with_dt(dt))
+        self._replay(("step",))
+        self._last_drops = self._state.drops
 
     def update_shadows(self):
         """One shadow-map update of the current state (the interval gate
-        and the round-robin schedule run on the host)."""
-        cfg = self.config
-        self.shadow_state = SH.render_shadow_map(
-            self.shadow_state, self.world, self.camera, self.bank,
-            max_tris=cfg.shadow_max_tris, interval=cfg.shadow_update_interval,
-            lov_bias=cfg.shadow_lov_bias, caster_mask=cfg.shadow_caster_mask)
+        and the round-robin schedule run on the host; a skipped update
+        launches nothing)."""
+        decision = self._shadow_decision()
+        if isinstance(decision, int):
+            self._replay(("shadows", decision))
 
     def render(self, camera=None, inputs: InputState | None = None
                ) -> torch.Tensor:
         """Render the current state, through ``camera`` (the engine's by
         default), with the current shadow maps, which this does not update:
-        (H, W, 3) float32 linear color. ``inputs``: the frame's inputs on
-        the engine's device, for the render systems' draw callbacks."""
-        return render_frame(self.world,
-                            self.camera if camera is None else camera,
-                            self.bank, self.config.render,
-                            cubemap=self.cubemap, atlas=self.atlas,
-                            shadow_state=self.shadow_state,
-                            systems=self.compiled_systems, inputs=inputs)
+        (H, W, 3) float32 linear color. ``inputs``: the frame's inputs
+        (host or tensor form), for the render systems' draw callbacks."""
+        st = self._state
+        if camera is None:
+            camera = self._cam_template
+            st.view.copy_(st.camv)
+        else:
+            st.view.copy_(camera.serialize())
+        if inputs is not None:
+            self._feed(_packed(inputs))
+        self._replay(("render", _camera_meta(camera), inputs is not None))
+        return st.image.clone()
 
     # the JAX package's name (detached-camera replay views)
     render_only = render
 
-    def frame(self, inputs: InputState | None = None, dt: float = 1.0 / 60.0,
-              render: bool = True, advance: str | None = None):
-        """Advance one frame: the step, then the shadow-map update if
-        ``render`` or ``advance == "fused"``, then (``render``) the render
-        of the stepped state. Returns the image or None.
-
-        ``advance`` is the JAX package's choice of compiled program:
-        ``"fused"`` (step, shadow update and render in one program) or
-        ``"step"`` (the step alone, plus an updating render if ``render``);
-        None means fused exactly when rendering. The world never depends on
-        it here (there is one eager step); it decides the shadow update,
-        and it is recorded with the frame's raw inputs so that logs replay
-        in either package with the live run's shadow maps and images.
-
-        The image is not waited for; the frame time recorded is the host's
-        dispatch time unless the caller synchronizes."""
+    def _advance_frame(self, inputs, dt, render, advance):
+        """One frame's programs; the image stays in the static buffer."""
         inputs = inputs if inputs is not None else InputState.idle(
             seed=self.frame_index)
         if advance not in (None, "fused", "step"):
@@ -249,38 +732,71 @@ class Engine:
         self._prev_keys = np.asarray(inputs.keys, bool)
         t0 = time.perf_counter()
         # one transfer: the step and the draw callbacks read the same
-        # tensors, live and in a replay
-        inputs = inputs.to_device(self.device)
-        self._step_device(inputs, dt)
-        if self.shadow_state is not None and (render or fused):
-            self.update_shadows()
-        img = self.render(inputs=inputs) if render else None
+        # packed vector, live and in a replay
+        self._feed(inputs.pack_with_dt(dt))
+        if fused:
+            self._replay(("frame", self._shadow_decision()))
+        else:
+            self._replay(("step",))
+            if render:
+                self._replay(("render_shadowed", self._shadow_decision()))
+        self._last_drops = self._state.drops
         self.frame_index += 1
         self._frame_times.append(time.perf_counter() - t0)
-        return img
+
+    def frame(self, inputs: InputState | None = None, dt: float = 1.0 / 60.0,
+              render: bool = True, advance: str | None = None):
+        """Advance one frame: the step, then the shadow-map update if
+        ``render`` or ``advance == "fused"``, then (``render``) the render
+        of the stepped state. Returns a fresh image or None.
+
+        ``advance`` is the JAX package's choice of program: ``"fused"``
+        (the frame program: step, shadow update and render; the image is
+        dropped without ``render``) or ``"step"`` (the step program, plus
+        the updating render program if ``render``); None means fused
+        exactly when rendering. It is recorded with the frame's raw inputs
+        so that logs replay in either package through the same programs.
+
+        The image is not waited for; the frame time recorded is the host's
+        dispatch time unless the caller synchronizes."""
+        self._advance_frame(inputs, dt, render, advance)
+        return self._state.image.clone() if render else None
 
     def _burst(self, inputs_list, dts, renders, advance):
         if len(inputs_list) != len(dts):
             raise ValueError(f"{len(inputs_list)} inputs for {len(dts)} dts")
-        img, drops = None, []
+        acc = self._burst_drops
+        acc.zero_()
         for inputs, dt, render in zip(inputs_list, dts, renders):
-            img = self.frame(inputs, dt, render=render, advance=advance)
-            drops.append(self._last_drops)
-        if drops:
-            # the per-counter max over the burst: an overflow in the middle
-            # of it stays visible
-            self._last_drops = torch.stack(drops).amax(0)
-        return img
+            self._advance_frame(inputs, dt, render, advance)
+            # the per-counter max over the burst: an overflow in the
+            # middle of it stays visible
+            torch.maximum(acc, self._state.drops, out=acc)
+        if len(dts):
+            self._last_drops = acc
+        return self._state.image.clone() if renders and renders[-1] \
+            else None
+
+    def _step_many(self, inputs_list, dts, render_last: bool = False):
+        """The JAX package's step burst: the step program frame by frame,
+        the last one followed by the updating render with
+        ``render_last``."""
+        n = len(dts)
+        return self._burst(inputs_list, dts,
+                           [render_last and i == n - 1 for i in range(n)],
+                           "step")
+
+    def _frames_scan(self, inputs_list, dts):
+        """The JAX package's rendered burst: the frame program for every
+        frame; the last image is returned."""
+        return self._burst(inputs_list, dts, [True] * len(dts), None)
 
     def run_frames(self, inputs_list, dts, render_last: bool = False):
         """Step many frames, recorded (when recording) as step frames. With
         ``render_last`` the last one also updates the shadow maps and
         renders; returns its image, else None. Drop counters are the
         per-counter max over the frames."""
-        n = len(dts)
-        return self._burst(inputs_list, dts,
-                           [render_last and i == n - 1 for i in range(n)],
-                           "step")
+        return self._step_many(inputs_list, dts, render_last)
 
     def run_frames_rendered(self, inputs_list, dts):
         """Step, update the shadows and render every one of many frames;
@@ -289,7 +805,7 @@ class Engine:
         if self.config.record_history:
             raise RuntimeError("run_frames_rendered is for unrecorded runs; "
                                "recorded frames go through frame()")
-        return self._burst(inputs_list, dts, [True] * len(dts), None)
+        return self._frames_scan(inputs_list, dts)
 
     def flush_history(self) -> str | None:
         """Write the history log to ``config.history_dir`` when recording;
@@ -331,7 +847,7 @@ class Engine:
             return {}
         s = self.config.render
         cfg = s.raster
-        world, camera, bank = self.world, self.camera, self.bank
+        world, camera, bank = self._state.world, self.camera, self.bank
         batch = to_screen(build_triangle_batch(
             world, bank, camera, max_tris=s.max_tris,
             systems=self.compiled_systems), s.width, s.height)
@@ -369,7 +885,8 @@ class Engine:
                 ltab, n_live, camera.position, T.inv44(camera.proj_view()),
                 tiles_x, tiles_y, cfg.tile_h, cfg.tile_w, s.width, s.height,
                 0.0, s.light_tile_budget)[2]
-        sh = self.shadow_state
+        sh = None if self._state.shadow is None else self._shadow_view(
+            self._state.shadow, self._sh_cursor, self._sh_tick)
         if sh is not None:
             c = self.config
             # the batch the NEXT update would rasterize (same schedule)

@@ -9,6 +9,8 @@ Port of ``render_engine_tpu/runtime/profiling.py``:
 
 and adds what the benchmarks share: ``require_device`` / ``device_info``
 (a measurement names the card it ran on, and fails where there is none),
+``device_activity`` (a trace's device rows: their sum, the time the device
+was busy and their span),
 ``timed`` and ``turn_medians`` (two variants compared in alternating turns
 inside one process, because the host clock drifts between runs).
 
@@ -92,6 +94,29 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_activity(events) -> dict:
+    """The device rows of a ``torch.profiler`` trace (``prof.events()``;
+    kernels, copies and memsets): how many, the sum of their durations,
+    the union of their intervals (the time the device ran at least one of
+    them) and the span from the first one's start to the last one's end,
+    the times in ms. A sum above the union means rows overlapped."""
+    rows = sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, total, lo, hi = 0.0, 0.0, None, None
+    for start, end in rows:
+        total += end - start
+        if hi is None or start > hi:
+            if hi is not None:
+                busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    if hi is not None:
+        busy += hi - lo
+    return {"rows": len(rows), "sum_ms": total / 1e3, "busy_ms": busy / 1e3,
+            "span_ms": (rows[-1][1] - rows[0][0]) / 1e3 if rows else 0.0}
 
 
 def require_device(device) -> torch.device:

@@ -5,6 +5,7 @@ Port of ``render_engine_tpu/world/culling.py``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,7 +27,7 @@ def within_distance(center: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
     d2 = ((clamped - center[None, :]) ** 2).sum(dim=-1)
     if isinstance(radius, torch.Tensor):
         return d2 <= radius * radius
-    r = torch.tensor(radius, dtype=torch.float32)
+    r = np.float32(radius)
     return d2 <= float(r * r)
 
 

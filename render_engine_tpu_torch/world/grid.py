@@ -13,6 +13,7 @@ import dataclasses
 import torch
 
 from render_engine_tpu_torch.ecs.world import World, WorldConfig
+from render_engine_tpu_torch.utils.consts import const
 
 _DEAD_KEY = 2 ** 31 - 1
 
@@ -20,8 +21,7 @@ _DEAD_KEY = 2 ** 31 - 1
 def section_key(position: torch.Tensor, config: WorldConfig) -> torch.Tensor:
     """Packed int32 key kx + G*(ky + G*kz); out-of-world cells clamp."""
     g = config.grid_cells_per_axis
-    lo = torch.tensor(config.world_min, dtype=torch.float32,
-                      device=position.device)
+    lo = const(tuple(map(float, config.world_min)), device=position.device)
     cell = (position - lo) / config.section_length
     # a position far outside the world must clamp, not wrap: bound the
     # float before the int cast (an out-of-range cast is undefined)

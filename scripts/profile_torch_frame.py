@@ -15,10 +15,15 @@ and on each:
 * times the frame's three parts (step, shadow-map update, render) through
   ``runtime.profiling.StageTimer`` with a synchronize after each: the
   median of each stage's last timings and the timer's EWMA;
-* traces 6 frames with ``torch.profiler`` (CPU and CUDA): kernel launches a
-  frame, device time a frame (the sum of the kernels' device time) and the
-  device's busy share, both over the traced wall time (the profiler slows
-  the host several times over) and over the untraced median frame.
+* traces 6 frames with ``torch.profiler`` (CPU and CUDA): host API
+  launches a frame (graph launches, kernel launches, copies and memsets:
+  the Engine replays each frame's captured programs, so a frame is a
+  graph launch or two, the input copy and the image clone), device
+  kernels a frame, device time a frame (the sum of the device rows'
+  times) and the device's busy share: the union of the device rows over
+  the window that CUDA events on the frames' stream take around the traced
+  frames, both from the same traced run. The sum over the union says
+  whether device rows overlapped.
 
 Prints one JSON object per engine, then the shading function's cost as the
 custom-shading engine minus the shadowed one, split into device time (from
@@ -57,25 +62,34 @@ def _timed_frames(eng, n):
     return times
 
 
+# the host API calls that put work on the device
+HOST_LAUNCH_APIS = ("cudaGraphLaunch", "cudaLaunchKernel",
+                    "cudaLaunchKernelExC", "cuLaunchKernel",
+                    "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def _parts(eng, n):
     """The step, the shadow update (split into updates that render a map
     and updates the interval skips) and the render through a StageTimer:
     per stage the median of its last timings and its EWMA, in ms."""
+    import torch
+
     from render_engine_tpu_torch.logic.types import InputState
     from render_engine_tpu_torch.runtime.profiling import StageTimer
 
     timer = StageTimer()
+    mark = torch.empty(0, device=eng.device)  # what the stages wait on
     for _ in range(n):
         inputs = InputState.idle(eng.frame_index).with_prev(eng._prev_keys)
-        with timer.stage("step", sync=eng.world):
+        with timer.stage("step", sync=mark):
             eng.step(inputs, DT)
         sh = eng.shadow_state
         if sh is not None:
             renders = sh.tick % eng.config.shadow_update_interval == 0
             with timer.stage("shadow_map_update" if renders
-                             else "shadow_skipped_update", sync=eng.world):
+                             else "shadow_skipped_update", sync=mark):
                 eng.update_shadows()
-        with timer.stage("render", sync=eng.world):
+        with timer.stage("render", sync=mark):
             eng.render()
         eng.frame_index += 1
     ewma = timer.report()
@@ -87,30 +101,37 @@ def _trace(eng, frames, out_dir, tag):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from render_engine_tpu_torch.runtime.profiling import device_activity
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         eng.frame(None, DT)  # the profiler's own start-up, not traced below
         torch.cuda.synchronize()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        first.record()
         for _ in range(frames):
             eng.frame(None, DT)
+        last.record()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    window_ms = first.elapsed_time(last)
     events = prof.key_averages()
-    launches = sum(e.count for e in events
-                   if e.key.startswith("cudaLaunchKernel"))
-    # the kernels' own rows (device-side events), not the ops that
+    api = {e.key: e.count / frames for e in events
+           if e.key in HOST_LAUNCH_APIS}
+    # the device rows (kernels, copies, memsets), not the ops that
     # launched them
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    act = device_activity(prof.events())
     with open(os.path.join(out_dir, f"key_averages_{tag}.txt"), "w") as fh:
         fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
-    return {"traced_frames": frames, "traced_wall_ms": wall_ms,
-            "launches_per_frame": launches / frames,
-            "device_ms_per_frame": device_us / 1e3 / frames,
-            "device_busy_share": device_us / 1e3 / wall_ms}
+    return {"traced_frames": frames,
+            "traced_window_ms_per_frame": window_ms / frames,
+            "launches_per_frame": sum(api.values()),
+            "host_api_per_frame": api,
+            "device_kernels_per_frame": act["rows"] / frames,
+            "device_ms_per_frame": act["sum_ms"] / frames,
+            "device_busy_share": act["busy_ms"] / window_ms,
+            "device_rows_sum_over_union": act["sum_ms"] / act["busy_ms"]}
 
 
 def main() -> int:
@@ -158,8 +179,6 @@ def main() -> int:
         res["part_ms_median"], res["part_ms_ewma"], hud = _parts(eng, 9)
         print(f"[{name}] {hud}", flush=True)
         res.update(_trace(eng, 6, args.out, name))
-        res["device_busy_share_untraced"] = res["device_ms_per_frame"] / (
-            statistics.median(sum(times[name], [])))
         print(json.dumps(res), flush=True)
         results[name] = res
     on, off = results["custom_shading"], results["shadows"]

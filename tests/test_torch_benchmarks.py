@@ -166,6 +166,20 @@ def test_results_file(tmp_path, monkeypatch, capsys):
         RB.main(["--device", "cpu", "nope"])
 
 
+@pytest.mark.parametrize("argv, want", [([], {}), (["--warmup", "6"],
+                                                    {"warmup": 6})],
+                         ids=["default", "six"])
+def test_warmup_option(monkeypatch, capsys, argv, want):
+    """``--warmup N`` reaches the configuration's function; without it the
+    function keeps its own default."""
+    seen = []
+    monkeypatch.setenv("BENCH_OUT", "")
+    monkeypatch.setitem(RB.ALL, "scene", lambda device, **kw: (
+        seen.append(kw) or {"config": "scene", "value": 1.0}, None))
+    assert RB.main(["--device", "cpu", *argv, "scene"]) == 0
+    assert seen == [want]
+
+
 def test_no_card_no_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -86,6 +86,32 @@ class TestStageTimer:
         assert "traceEvents" in json.loads(path.read_text())
         assert any("sum" in e.key for e in prof.key_averages())
 
+    @pytest.mark.parametrize("rows, want", [
+        # two rows that overlap, one inside another, a gap, a host row
+        ([(0, 100, "cuda"), (50, 150, "cuda"), (60, 70, "cuda"),
+          (300, 400, "cuda"), (0, 1000, "cpu")],
+         {"rows": 4, "sum_ms": 0.31, "busy_ms": 0.25, "span_ms": 0.4}),
+        # back to back: busy for the whole span, the sum equal to the union
+        ([(10, 20, "cuda"), (20, 30, "cuda")],
+         {"rows": 2, "sum_ms": 0.02, "busy_ms": 0.02, "span_ms": 0.02}),
+        ([(0, 5, "cpu")],
+         {"rows": 0, "sum_ms": 0.0, "busy_ms": 0.0, "span_ms": 0.0})],
+        ids=["overlap_and_gap", "back_to_back", "no_device_rows"])
+    def test_device_activity(self, rows, want):
+        """The device's busy time is the union of its rows' intervals (us
+        in the trace, ms out); host rows do not count."""
+        from types import SimpleNamespace
+
+        kinds = {"cuda": torch.autograd.DeviceType.CUDA,
+                 "cpu": torch.autograd.DeviceType.CPU}
+        events = [SimpleNamespace(
+            time_range=SimpleNamespace(start=float(a), end=float(b)),
+            device_type=kinds[k]) for a, b, k in rows]
+        got = PT.device_activity(events)
+        assert got["rows"] == want["rows"]
+        for key in ("sum_ms", "busy_ms", "span_ms"):
+            assert got[key] == pytest.approx(want[key], abs=1e-12), key
+
 
 class TestFpsLimiter:
     def test_cap_sleeps_to_budget(self):
