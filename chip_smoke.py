@@ -96,8 +96,9 @@ Phases (any failure exits non-zero; no phase catches its own):
              tiles, within the JAX package's limits (max diff below 0.03,
              at most 0.5% of pixels beyond 1e-6); then a one-rank NCCL
              group (a file:// store in the build directory) through
-             make_mesh, scripts/multigpu_torch.sharded_frame (the step of
-             the whole world, render_frame_sharded) and gather_image, whose
+             make_mesh, scripts/multigpu_torch.sharded_frame (the
+             partitioned step of the rank's rows, the world gathered,
+             render_frame_sharded) and gather_image, whose
              image and world hash must equal Engine.frame's (torch.equal),
              and shard_world / gather_world's world hash; ms of 4 bands
              against one frame in turns, as a record. The engine's state
@@ -133,6 +134,19 @@ Phases (any failure exits non-zero; no phase catches its own):
              host API launches and device kernels a frame, device time and
              busy share, with K1, K2 and K3 counted in the trace equal to
              the launch counts.
+  14. partitioned the partitioned step (parallel.shard_step: the tick
+             on DTensors sharded by entity) on a one-rank NCCL group
+             against the Engine's captured step, frame by frame: the
+             headline world (1080p engine, 10,000 asteroids, capacity
+             16384) for 8 step frames, one of 4.5 s that fires the mine
+             spawner, and tick-100k's world (capacity 131,072) for 3
+             steps; every column, the world hash, the camera and the 6
+             step counters equal (torch.equal), no kernel launched; the
+             partitioned step's eager ms against the captured step's in
+             turns, as a record. A line first says why no 2 gloo ranks
+             share the card (GLOO_CUDA_REFUSED: the functional
+             all-gather DTensor issues crashes on CUDA tensors under
+             gloo; PERF.md).
 Every phase drives the captured Engine. Where a phase holds a kernel
 against its plain version on a frame's own inputs (phases 2, 3, 7, 8, 10),
 that frame runs through ``Eager``, so the kernel wrappers see each call;
@@ -1736,6 +1750,20 @@ def band_agreement(img, ref):
     return float(diff.max()), float((diff > 1e-6).double().mean())
 
 
+def init_one_rank_nccl():
+    """The default process group as one rank of NCCL, meeting in a
+    ``file://`` store in the build directory."""
+    import torch.distributed as dist
+
+    store = os.path.join(HERE, "render_engine_tpu_torch", "_build",
+                         "nccl_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+
+
 def phase_bands(eng):
     """Phase 11 (module docstring) on the engine's current state."""
     import torch
@@ -1746,7 +1774,8 @@ def phase_bands(eng):
     from render_engine_tpu_torch.parallel import (gather_image, gather_world,
                                                   make_mesh,
                                                   render_frame_band,
-                                                  shard_world)
+                                                  shard_step, shard_world)
+    from render_engine_tpu_torch.runtime.engine import config_step
     from render_engine_tpu_torch.render import raster_pallas as RP
     from render_engine_tpu_torch.render import shade_pallas as SP
     from render_engine_tpu_torch.runtime.profiling import turn_medians as tm
@@ -1828,23 +1857,20 @@ def phase_bands(eng):
                            "headline's budgets")
 
     # one rank of a NCCL group: the band is the whole frame
-    store = os.path.join(HERE, "render_engine_tpu_torch", "_build",
-                         "nccl_store")
-    os.makedirs(os.path.dirname(store), exist_ok=True)
-    if os.path.exists(store):
-        os.remove(store)
     state = engine_state(eng)
     recording, eng.config.record_history = eng.config.record_history, False
-    dist.init_process_group("nccl", init_method=f"file://{store}",
-                            world_size=1, rank=0)
+    init_one_rank_nccl()
     try:
         mesh = make_mesh(1)
         inputs = InputState.idle(eng.frame_index)
         img_e = eng.frame(inputs, DT)
         hash_e = world_hash(eng.world)
         restore_state(eng, state)
-        img_s = gather_image(MG.sharded_frame(eng, mesh, inputs), mesh,
-                             s.height)
+        stepped = shard_step(config_step(eng.config), mesh)
+        _, own_band, _ = MG.sharded_frame(eng, mesh, stepped,
+                                          shard_world(eng.world, mesh),
+                                          inputs.with_prev(eng._prev_keys))
+        img_s = gather_image(own_band, mesh, s.height)
         hash_s = world_hash(eng.world)
         hash_g = world_hash(gather_world(shard_world(eng.world, mesh), mesh))
         torch.cuda.synchronize()
@@ -2455,6 +2481,134 @@ def phase_programs():
     return out
 
 
+# phase 14: the partitioned step on a one-rank NCCL group against the
+# Engine's captured step
+PARTITIONED_STEPS, PARTITIONED_SPAWN_AT = 8, 5  # step 5 lasts SPAWN_DT s
+TICK_STEPS = 3
+PARTITIONED_TURNS = ("captured", "partitioned", "partitioned", "captured")
+PARTITIONED_TURN_STEPS = 5
+# why phase 14 runs no 2 gloo ranks on the one card (NCCL refuses two ranks
+# on one card): a probe of each collective in 2 processes on the H100,
+# torch 2.11 (its findings are in PERF.md)
+GLOO_CUDA_REFUSED = (
+    "gloo moves CUDA tensors through torch.distributed's all_gather_into_"
+    "tensor, all_reduce, all_gather and all_gather_object and the "
+    "functional all_reduce, but the functional all-gather DTensor issues "
+    "(_c10d_functional's all_gather_into_tensor and its wait_tensor) ends "
+    "the rank with SIGSEGV on CUDA tensors; the multi-rank evidence is the "
+    "CPU tests (2, 4 and 8 gloo ranks) and scripts/multigpu_torch.py under "
+    "torchrun on 4 cards")
+
+
+def partitioned_vs_captured(label, eng, steps, spawn_at=None):
+    """``steps`` steps of ``eng``'s captured step program and of the
+    partitioned step on a one-rank NCCL mesh from the same state, each
+    step's columns, world hash, camera and counters equal; then their ms
+    in turns. The engine's state is put back."""
+    import numpy as np
+    import torch
+
+    from render_engine_tpu_torch import kernels
+    from render_engine_tpu_torch.logic.step import (pack_drop_stats,
+                                                    unpack_drop_stats)
+    from render_engine_tpu_torch.parallel import (columns, make_mesh,
+                                                  shard_step, shard_world)
+    from render_engine_tpu_torch.runtime.engine import config_step
+    from render_engine_tpu_torch.runtime.profiling import turn_medians as tm
+    from render_engine_tpu_torch.utils.hashing import world_hash
+
+    mesh = make_mesh(1)
+    stepped = shard_step(config_step(eng.config), mesh)
+    state = engine_state(eng)
+    rows, camera = shard_world(eng.world, mesh), eng.camera
+    boxes = (eng.bank.aabb_min, eng.bank.aabb_max)
+    prev = eng._prev_keys.copy()
+    alive0 = int(eng.world.alive.sum())
+    kernels.reset_launch_counts()
+    for i in range(steps):
+        inputs = frame_inputs(i).with_prev(prev)
+        prev = np.asarray(inputs.keys, bool)
+        dt = SPAWN_DT if i == spawn_at else DT
+        eng.step(inputs, dt)
+        rows, camera, stats = stepped(
+            rows, camera, inputs.to_device(mesh.device),
+            torch.tensor(np.float32(dt), device=mesh.device), *boxes)
+        want = eng.world
+        same = {"columns": all(torch.equal(v, columns(want)[k])
+                               for k, v in columns(rows).items()),
+                "hash": world_hash(rows) == world_hash(want),
+                "camera": torch.equal(camera.serialize(),
+                                      eng.camera.serialize()),
+                "counters": torch.equal(pack_drop_stats(stats),
+                                        eng._last_drops)}
+        if not all(same.values()):
+            raise RuntimeError(
+                f"[partitioned] {label} step {i}: the partitioned step "
+                f"differs from the captured one in "
+                f"{[k for k, v in same.items() if not v]}")
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if launched:
+        raise RuntimeError(f"[partitioned] {label}: the steps launched "
+                           f"{launched}")
+    alive = int(rows.alive.sum())
+    log(f"[partitioned] {label}: {steps} steps on a one-rank NCCL group "
+        f"({mesh.device}, {rows.alive.shape[0]} rows) against the captured "
+        "step: every column, the world hash, the camera and the 6 counters "
+        f"equal (torch.equal) after each step; {alive0} -> {alive} alive"
+        + (f" (step {spawn_at} lasts {SPAWN_DT} s and fires the mine "
+           "spawner)" if spawn_at is not None else "")
+        + f"; counters {unpack_drop_stats(pack_drop_stats(stats))}; no "
+        "kernel launched")
+    inputs = frame_inputs(0)
+    dev_in = inputs.to_device(mesh.device)
+    dt_t = torch.tensor(np.float32(DT), device=mesh.device)
+    mode, held = {}, {"rows": rows, "camera": camera}
+
+    def one():
+        if mode["which"] == "captured":
+            eng.step(inputs, DT)
+        else:
+            held["rows"], held["camera"], _ = stepped(
+                held["rows"], held["camera"], dev_in, dt_t, *boxes)
+
+    turns = tm(one, PARTITIONED_TURNS, lambda w: mode.update(which=w),
+               frames=PARTITIONED_TURN_STEPS, log=log, label="partitioned",
+               what=f"{label} step, eager partitioned against captured (a "
+               "record): ")[0]
+    restore_state(eng, state)
+    return dict(steps=steps, alive=alive, ms=turns)
+
+
+def phase_partitioned():
+    """Phase 14 (module docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    from benchmarks import run_benchmarks_torch as RB
+    from render_engine_tpu_torch.demo.space_scene import build_space_engine
+
+    out = {}
+    log(f"[partitioned] 2 ranks on the one card under gloo: not run; "
+        f"{GLOO_CUDA_REFUSED}")
+    init_one_rank_nccl()
+    try:
+        eng = build_space_engine(device="cuda", **SLICE)
+        eng.config.record_history = False
+        out["headline"] = partitioned_vs_captured(
+            "headline 1080p/10k", eng, PARTITIONED_STEPS,
+            spawn_at=PARTITIONED_SPAWN_AT)
+        del eng
+        torch.cuda.empty_cache()
+        _, eng = RB.bench_tick(scale=1.0, frames=1, burst=2)
+        out["tick"] = partitioned_vs_captured("tick-100k", eng, TICK_STEPS)
+        del eng
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log(json.dumps({"partitioned": out}))
+    return out
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace, set before CUDA
     # starts (phase 6 runs with deterministic algorithms)
@@ -2522,6 +2676,7 @@ def main() -> int:
     phase_golden()
     phase_configs()
     phase_programs()
+    phase_partitioned()
     # the two branch rows take their launches from their own phase's run
     rec.update(resolve_full_frame=rec_c, fused_shade_tile_lists=rec_l)
     for name, run, n in (("resolve_full_frame", launches_c, frames_c),

@@ -14,6 +14,7 @@ import torch
 
 from render_engine_tpu_torch.ecs import registry as R
 from render_engine_tpu_torch.ecs.world import World, _default_column
+from render_engine_tpu_torch.utils.indexing import whole
 
 OWNED_CASCADE_ROUNDS = 5
 
@@ -167,10 +168,12 @@ def apply_changeset(world: World, cs: ChangeSet) -> World:
     comps["flags"] = (comps["flags"] | cs.set_flags) & ~cs.clear_flags
 
     # owned-entity cascade by pointer doubling: after OWNED_CASCADE_ROUNDS
-    # rounds chains up to 2^ROUNDS deep have propagated their deaths
+    # rounds chains up to 2^ROUNDS deep have propagated their deaths. A
+    # parent may live on another rank of a partitioned world: the chains
+    # run over whole columns (``whole``)
     cap = world.capacity
-    dead = cs.despawn_mask
-    anc = comps["parent"]
+    dead = whole(cs.despawn_mask)
+    anc = whole(comps["parent"])
     for _ in range(OWNED_CASCADE_ROUNDS):
         valid = anc >= 0
         anc_c = anc.clamp(0, cap - 1).long()
@@ -189,11 +192,13 @@ def apply_changeset(world: World, cs: ChangeSet) -> World:
 
 
 def _drain_spawns(world: World, sp: SpawnBatch) -> World:
-    """Assign valid spawn rows, in row order, to the first free slots."""
+    """Assign valid spawn rows, in row order, to the first free slots.
+    The free slots are numbered over the whole world (a spawn may land on
+    any rank of a partitioned world)."""
     alive = world.alive
     cap = world.capacity
     free = ~alive
-    rank = torch.cumsum(free.to(torch.int32), 0) - 1
+    rank = torch.cumsum(whole(free).to(torch.int32), 0) - 1
     perm = torch.argsort((~sp.row_valid).to(torch.int32), stable=True)
     landing_row = torch.where(free, rank, torch.full_like(rank, cap))
     takes = free & (landing_row < sp.count)

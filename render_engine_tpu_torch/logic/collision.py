@@ -15,6 +15,7 @@ import torch
 
 from render_engine_tpu_torch.ecs import registry as R
 from render_engine_tpu_torch.ecs.world import World
+from render_engine_tpu_torch.utils.indexing import placed_like, whole
 from render_engine_tpu_torch.world import grid as G
 
 CAMERA_CUTOFF = 200.0
@@ -63,11 +64,13 @@ class CollisionResult:
         out = [(self.query, self.query_valid, self.cand, self.cand_type,
                 self.hit & self.query_valid[:, None])]
         if self.lquery.shape[0] > 0:
+            # each large query's row over every entity, whole on every rank
+            lhit = whole(self.lhit)
             lcand = torch.arange(cap, device=world.device)[None, :].expand(
-                self.lhit.shape)
-            ltype = world["type_id"][None, :].expand(self.lhit.shape)
+                lhit.shape)
+            ltype = whole(world["type_id"])[None, :].expand(lhit.shape)
             out.append((self.lquery, self.lquery_valid, lcand, ltype,
-                        self.lhit & self.lquery_valid[:, None]))
+                        lhit & self.lquery_valid[:, None]))
         return out
 
     def hits_topk(self, world: World, k: int):
@@ -77,9 +80,12 @@ class CollisionResult:
         beyond slot ``k``."""
         cap = world.capacity
         dev = world.device
-        others = torch.full((cap + 1, k), -1, dtype=torch.int32, device=dev)
-        masks = torch.zeros((cap + 1, k), dtype=torch.bool, device=dev)
-        otypes = torch.full((cap + 1, k), -1, dtype=torch.int32, device=dev)
+        others = placed_like(torch.full((cap + 1, k), -1, dtype=torch.int32,
+                                        device=dev), self.query)
+        masks = placed_like(torch.zeros((cap + 1, k), dtype=torch.bool,
+                                        device=dev), self.query)
+        otypes = placed_like(torch.full((cap + 1, k), -1, dtype=torch.int32,
+                                        device=dev), self.query)
         dropped = torch.zeros((), dtype=torch.int64, device=dev)
         for query, valid, cand, ctype, ok in self._tables(world):
             rank = torch.cumsum(ok.to(torch.int32), dim=-1)
@@ -120,6 +126,9 @@ def find_collisions(world: World, grid: G.GridIndex,
                 <= float(cut * cut))
     q = query_mask & near_cam
     mn, mx = world["aabb_min"], world["aabb_max"]
+    # the rows read by global row number: all-gathered on a partitioned
+    # world (``utils/indexing.py``), the same tensors on one device
+    mn_all, mx_all = whole(mn), whole(mx)
     arange = torch.arange(cap, device=dev)
 
     lb = min(large_budget, cap)
@@ -130,9 +139,9 @@ def find_collisions(world: World, grid: G.GridIndex,
     else:
         is_large = torch.zeros(cap, dtype=torch.bool, device=dev)
 
-    def compact(mask, budget):
-        idx = torch.sort(torch.where(mask, arange,
-                                     torch.full_like(arange, cap))).values
+    def compact(mask, budget):  # in global row order on every rank
+        idx = torch.sort(whole(torch.where(
+            mask, arange, torch.full_like(arange, cap)))).values
         idx = idx[:budget]
         return idx.clamp(0, cap - 1), idx < cap
 
@@ -145,7 +154,8 @@ def find_collisions(world: World, grid: G.GridIndex,
         world["type_id"].to(torch.float32)[:, None],
         mn, mx, is_large.to(torch.float32)[:, None]], dim=1)
     rows, valid, cell_dropped = G.neighbor_candidate_rows(
-        grid, grid.keys[qidx], cfg, table[grid.perm], per_cell_budget)
+        grid, grid.keys[qidx], cfg, whole(table)[grid.perm],
+        per_cell_budget)
     ch = rows.movedim(-1, 0)
     cand = ch[0].to(torch.int64)
     ctype = ch[2].to(torch.int32)
@@ -153,18 +163,20 @@ def find_collisions(world: World, grid: G.GridIndex,
         & qvalid[:, None]
     if lb > 0:
         valid = valid & ~(ch[9] > 0.5)
-    qmn, qmx = mn[qidx], mx[qidx]
+    qmn, qmx = mn_all[qidx], mx_all[qidx]
     hit = valid
     for a in range(3):
         hit = hit & (qmn[:, a:a + 1] <= ch[6 + a]) \
             & (ch[3 + a] <= qmx[:, a:a + 1])
-    query_dropped = (q.sum() - qb).clamp(min=0).to(torch.int32)
+    # counts over every rank's rows, reduced before they are compared
+    query_dropped = (whole(q.sum()) - qb).clamp(min=0).to(torch.int32)
 
     large_dropped = torch.zeros((), dtype=torch.int32, device=dev)
     if lb > 0:
         lidx, lvalid = compact(is_large, lb)
-        large_dropped = (is_large.sum() - lb).clamp(min=0).to(torch.int32)
-        lmn, lmx = mn[lidx], mx[lidx]
+        large_dropped = (whole(is_large.sum()) - lb).clamp(min=0).to(
+            torch.int32)
+        lmn, lmx = mn_all[lidx], mx_all[lidx]
         ghit = qvalid[:, None] & lvalid[None, :] \
             & (lidx[None, :] != qidx[:, None])
         for a in range(3):
@@ -172,12 +184,13 @@ def find_collisions(world: World, grid: G.GridIndex,
                 & (lmn[None, :, a] <= qmx[:, a:a + 1])
         cand = torch.cat([cand, lidx[None, :].expand(ghit.shape)], dim=1)
         ctype = torch.cat(
-            [ctype, world["type_id"][lidx][None, :].expand(ghit.shape)],
+            [ctype, whole(world["type_id"])[lidx][None, :].expand(
+                ghit.shape)],
             dim=1)
         hit = torch.cat([hit, ghit], dim=1)
 
         lqidx, lqvalid = compact(query_mask & near_cam & is_large, lb)
-        lq_mn, lq_mx = mn[lqidx], mx[lqidx]
+        lq_mn, lq_mx = mn_all[lqidx], mx_all[lqidx]
         bhit = lqvalid[:, None] & world.alive[None, :] \
             & (arange[None, :] != lqidx[:, None])
         for a in range(3):

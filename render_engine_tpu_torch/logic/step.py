@@ -33,7 +33,7 @@ from render_engine_tpu_torch.logic import collision as COL
 from render_engine_tpu_torch.logic import kinematics as K
 from render_engine_tpu_torch.logic import random as RND
 from render_engine_tpu_torch.logic.types import EntityType, InputState
-from render_engine_tpu_torch.utils.indexing import gather_row
+from render_engine_tpu_torch.utils.indexing import gather_row, whole
 from render_engine_tpu_torch.world import culling
 from render_engine_tpu_torch.world import grid as G
 
@@ -169,8 +169,8 @@ def make_step(types: Sequence[EntityType], *, logic_radius=None,
         if cs.spawns is not None:
             landed = world.alive & ~alive_before
             logic_dirty = logic_dirty | landed
-            stats["spawn_dropped"] = (
-                cs.spawns.count - landed.sum(dtype=torch.int32)).clamp(min=0)
+            stats["spawn_dropped"] = (cs.spawns.count - whole(
+                landed.sum(dtype=torch.int32))).clamp(min=0)
         world = K.refresh_transforms(world, model_aabb_min, model_aabb_max,
                                      logic_dirty)
 

@@ -1,14 +1,17 @@
-"""Several cards: the frame in bands of tile rows, one band a rank, over
-``torch.distributed`` with one process a card.
+"""Several cards: the world sharded by entity and the frame in bands of
+tile rows, one band a rank, over ``torch.distributed`` with one process a
+card.
 
 Port of ``render_engine_tpu/parallel/``: ``mesh`` (the ranks, the world's
-and the image's sharding, the world's rows split and joined) and
-``render`` (a band a rank through the fused tiled frame). Every rank holds
-the whole world and steps it alike; only the bands are gathered.
+and the image's sharding, the world's rows split and joined), ``step``
+(the tick partitioned over the entity axis, each rank stepping its
+``capacity / n`` rows) and ``render`` (a band a rank through the fused
+tiled frame, from the whole world).
 """
 
 from render_engine_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
+    columns,
     gather_world,
     image_sharding,
     make_mesh,
@@ -21,3 +24,4 @@ from render_engine_tpu_torch.parallel.render import (  # noqa: F401
     render_frame_band,
     render_frame_sharded,
 )
+from render_engine_tpu_torch.parallel.step import shard_step  # noqa: F401

@@ -70,16 +70,17 @@ def make_mesh(n_devices: int | None = None, axis_name: str = "world"
                 group=dist.group.WORLD)
 
 
-def _leaves(world: World):
-    """(key, tensor) of every per-entity column, in a fixed order."""
-    return [("alive", world.alive), ("comp_mask", world.comp_mask)] + \
-        [(k, world.comps[k]) for k in sorted(world.comps)]
+def columns(world: World) -> dict:
+    """Every per-entity column by name: ``alive``, ``comp_mask``, then the
+    components in name order."""
+    return {"alive": world.alive, "comp_mask": world.comp_mask,
+            **{k: world.comps[k] for k in sorted(world.comps)}}
 
 
-def _rebuild(world: World, leaves: dict) -> World:
+def _rebuild(world: World, cols: dict) -> World:
     return dataclasses.replace(
-        world, alive=leaves["alive"], comp_mask=leaves["comp_mask"],
-        comps={k: leaves[k] for k in world.comps})
+        world, alive=cols["alive"], comp_mask=cols["comp_mask"],
+        comps={k: cols[k] for k in world.comps})
 
 
 def world_sharding(world: World, mesh: Mesh) -> World:
@@ -93,7 +94,7 @@ def world_sharding(world: World, mesh: Mesh) -> World:
             return Sharding(mesh, (mesh.axis_name,))
         return replicated(mesh)
 
-    return _rebuild(world, {k: spec(v) for k, v in _leaves(world)})
+    return _rebuild(world, {k: spec(v) for k, v in columns(world).items()})
 
 
 def shard_world(world: World, mesh: Mesh) -> World:
@@ -109,8 +110,9 @@ def shard_world(world: World, mesh: Mesh) -> World:
             leaf = leaf[lo:lo + rows]
         return leaf.to(mesh.device).contiguous()
 
-    return _rebuild(world, {k: place(v, s) for (k, v), (_, s) in
-                            zip(_leaves(world), _leaves(specs))})
+    specs = columns(specs)
+    return _rebuild(world, {k: place(v, specs[k])
+                            for k, v in columns(world).items()})
 
 
 def all_gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -138,7 +140,8 @@ def gather_world(sharded: World, mesh: Mesh) -> World:
                              f"shard of capacity {cap} over {mesh.size}")
         return all_gather_rows(leaf, mesh)
 
-    return _rebuild(sharded, {k: whole(v) for k, v in _leaves(sharded)})
+    return _rebuild(sharded, {k: whole(v)
+                              for k, v in columns(sharded).items()})
 
 
 def replicated(mesh: Mesh) -> Sharding:

@@ -190,6 +190,17 @@ class _Program:
             kernels.LAUNCHES[k] += n
 
 
+def config_step(cfg: EngineConfig):
+    """The world tick of a configuration: ``make_step`` with its entity
+    types and its budgets, as the Engine steps its world."""
+    return make_step(
+        tuple(cfg.entity_types),
+        logic_radius=cfg.logic_radius, spawn_budget=cfg.spawn_budget,
+        collision_budget=cfg.collision_budget,
+        collision_pairs=cfg.collision_pairs,
+        collision_large_budget=cfg.collision_large_budget)
+
+
 class Engine:
     def __init__(self, config: EngineConfig, camera: Camera | None = None,
                  device="cuda"):
@@ -363,12 +374,7 @@ class Engine:
         # the baseline is the refreshed world: the Player uses it verbatim
         self._start_history()
         cfg = self.config
-        self._step_fn = make_step(
-            tuple(cfg.entity_types), logic_radius=cfg.logic_radius,
-            spawn_budget=cfg.spawn_budget,
-            collision_budget=cfg.collision_budget,
-            collision_pairs=cfg.collision_pairs,
-            collision_large_budget=cfg.collision_large_budget)
+        self._step_fn = config_step(cfg)
         self.compiled_systems = None
         rs = cfg.render_systems
         if rs is not None:

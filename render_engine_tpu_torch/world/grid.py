@@ -14,6 +14,8 @@ import torch
 
 from render_engine_tpu_torch.ecs.world import World, WorldConfig
 from render_engine_tpu_torch.utils.consts import const
+from render_engine_tpu_torch.utils.indexing import (placed_like, whole,
+                                                  whole_local)
 
 _DEAD_KEY = 2 ** 31 - 1
 
@@ -46,8 +48,12 @@ class GridIndex:
 
 
 def build_grid(world: World) -> GridIndex:
+    """The keys of every row, sorted. On a partitioned world each rank
+    computes its rows' keys and the keys are all-gathered once: the sort
+    and the neighbour windows need all of them."""
     keys = section_key(world["position"], world.config)
-    keys = torch.where(world.alive, keys, torch.full_like(keys, _DEAD_KEY))
+    keys = whole(torch.where(world.alive, keys,
+                             torch.full_like(keys, _DEAD_KEY)))
     perm = torch.argsort(keys, stable=True)
     return GridIndex(perm=perm, sorted_keys=keys[perm], keys=keys)
 
@@ -72,12 +78,21 @@ def first_occurrence_mask(nk: torch.Tensor) -> torch.Tensor:
     return ~(eq & earlier).any(dim=-1)
 
 
+def _searchsorted(sk: torch.Tensor, v: torch.Tensor, right: bool = False
+                  ) -> torch.Tensor:
+    """``torch.searchsorted``. DTensor has no sharding rule for it: on a
+    partitioned world both sides are whole on every rank, so each rank
+    searches its own copy."""
+    out = torch.searchsorted(whole_local(sk).contiguous(),
+                             whole_local(v).contiguous(), right=right)
+    return placed_like(out, sk)
+
+
 def _cell_windows(grid: GridIndex, nk: torch.Tensor, b: int):
     """Each neighbor cell's first ``b`` slots of the sorted index: (slot
     (Q, 27, b), valid (Q, 27, b), cell_live (Q, 27), starts, ends)."""
-    sk = grid.sorted_keys.contiguous()
-    starts = torch.searchsorted(sk, nk.contiguous())
-    ends = torch.searchsorted(sk, nk.contiguous(), right=True)
+    starts = _searchsorted(grid.sorted_keys, nk)
+    ends = _searchsorted(grid.sorted_keys, nk, right=True)
     slot = starts[..., None] + torch.arange(b, device=nk.device)
     cell_live = first_occurrence_mask(nk)
     valid = (slot < ends[..., None]) & cell_live[..., None]

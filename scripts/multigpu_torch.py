@@ -1,24 +1,33 @@
-"""Step the demo frame on every rank and render it in bands of tile rows,
-one band a rank, and hold it to one device: the PyTorch port's counterpart
-of the JAX package's multichip dry run (``__graft_entry__.dryrun_multichip``).
+"""Step the demo frame partitioned by entity and render it in bands of tile
+rows, one band a rank, and hold it to one device: the PyTorch port's
+counterpart of the JAX package's multichip dry run
+(``__graft_entry__.dryrun_multichip``).
 
     torchrun --nproc-per-node N scripts/multigpu_torch.py     # NCCL, N cards
     python3 scripts/multigpu_torch.py --device cpu --ranks N  # gloo, N CPU
                                                               # processes
 
-Every rank builds the demo engine (the same seed everywhere) and runs
-``--frames`` frames as ``Engine.frame`` does: the step and the shadow-map
-update on the whole world (the step is deterministic, so the ranks' worlds
-stay equal and no world rows move), then its band of the image
-(``render_frame_sharded``). The image is gathered (``gather_image``) and
-rank 0 replays the same frames on one device through ``Engine.frame`` and
-prints the parity line: the max abs diff of the images, the share of
-pixels differing by more than 1e-6, the images' u8 hashes sharded /
-single, the world hashes of every rank and of one device, the image rows
-a rank. It exits non-zero when a rank's world hash differs from one
+Every rank builds the demo engine (the same seed everywhere), keeps its
+``capacity / N`` rows of the world (``shard_world``) and runs ``--frames``
+frames: the partitioned step of its rows (``shard_step``), the world
+gathered (``gather_world``, the counterpart of the JAX render pass's
+all-gather of the triangle batch) for the shadow-map update and its band
+of the image (``render_frame_sharded``). The image is gathered
+(``gather_image``) and rank 0 replays the same frames on one device
+through ``Engine.frame`` and prints the parity line: the max abs diff of
+the images, the share of pixels differing by more than 1e-6, the images'
+u8 hashes sharded / single, the world hashes of every rank (after the
+gather) and of one device, the world rows a rank and the image rows a
+rank. It exits non-zero when a rank's world hash differs from one
 device's or the images differ at all: at tile budgets of 1.0 a band is
 the whole frame's rows, since shifting the triangles by a whole number of
 tile rows changes no K1 edge test.
+
+Then the scale phase, the dry run's: the 10k-entity world at capacity
+16384 stepped over the mesh. Every rank must hold ``16384 / N`` rows of
+every per-entity column after the step, and the gathered world, the
+camera and the step counters must equal the unsharded step's; the wall
+time of both is printed as a record, not a claim.
 
 On cards the engine has the headline's size (1920x1080, 10,000 asteroids);
 on the CPU the dry run's toy size. Both runs render with texture and
@@ -59,35 +68,118 @@ def u8_hash(img):
         np.uint8).tobytes()).hexdigest()[:16]
 
 
-def sharded_frame(eng, mesh, inputs, dt=DT):
-    """One ``Engine.frame`` of ``eng`` with the image in bands: the step and
-    the shadow-map update of the whole world (``Engine.frame`` without its
-    render), then this rank's band of the stepped state, which it
-    returns."""
-    from render_engine_tpu_torch.parallel import render_frame_sharded
+def sharded_frame(eng, mesh, stepped, rows, inputs, dt=DT):
+    """One frame of ``eng`` over ``mesh``: ``stepped`` (``shard_step`` of
+    the Engine's tick, ``config_step``) on this rank's ``rows``, then the
+    world gathered into the engine for the shadow-map update and this
+    rank's band of the stepped state. ``inputs``: the host inputs with
+    their ``prev_keys``. Returns ``(rows, band, stats)``."""
+    import numpy as np
+    import torch
 
-    # the draw callbacks read the inputs as Engine.frame hands them over
-    drawn = inputs.with_prev(eng._prev_keys).to_device(mesh.device)
-    eng.frame(inputs, dt, render=False, advance="fused")
-    return render_frame_sharded(
+    from render_engine_tpu_torch.parallel import (gather_world,
+                                                  render_frame_sharded)
+
+    dev_inputs = inputs.to_device(mesh.device)
+    rows, camera, stats = stepped(
+        rows, eng.camera, dev_inputs,
+        torch.tensor(np.float32(dt), device=mesh.device),
+        eng.bank.aabb_min, eng.bank.aabb_max)
+    eng.world = gather_world(rows, mesh)
+    eng.camera = camera
+    eng.update_shadows()
+    band = render_frame_sharded(
         eng.world, eng.camera, eng.bank, eng.config.render, mesh,
         cubemap=eng.cubemap, atlas=eng.atlas, shadow_state=eng.shadow_state,
-        systems=eng.compiled_systems, inputs=drawn)
+        systems=eng.compiled_systems, inputs=dev_inputs)
+    return rows, band, stats
 
 
-def run(mesh, kw, frames=1, log=print):
-    """Build, step and render ``frames`` frames sharded over ``mesh``;
-    on rank 0 also on one device. Returns, on rank 0, the record (the
-    gathered image under ``image``), elsewhere None; raises past the
-    limits."""
-    import dataclasses
-
+def scale(mesh, height, log=print):
+    """The dry run's scale phase over ``mesh``: the 10k-entity world at
+    capacity 16384, stepped once partitioned and once whole on every rank
+    (each after a warm-up). Raises unless every rank holds ``capacity / n``
+    rows of every column and the gathered world, the camera and the
+    counters equal the unsharded step's. Returns the record on rank 0."""
+    import numpy as np
     import torch
     import torch.distributed as dist
 
     from render_engine_tpu_torch.demo.space_scene import build_space_engine
     from render_engine_tpu_torch.logic.types import InputState
-    from render_engine_tpu_torch.parallel import gather_image
+    from render_engine_tpu_torch.parallel import (columns, gather_world,
+                                                  shard_step, shard_world)
+    from render_engine_tpu_torch.runtime.engine import config_step
+
+    eng = build_space_engine(device=mesh.device, width=128, height=height,
+                             capacity=16384, num_asteroids=10000,
+                             max_tris=2048)
+    step = config_step(eng.config)
+    stepped = shard_step(step, mesh)
+    args = (eng.camera, InputState.idle(0).to_device(mesh.device),
+            torch.tensor(np.float32(DT), device=mesh.device),
+            eng.bank.aabb_min, eng.bank.aabb_max)
+    rows = shard_world(eng.world, mesh)
+
+    def timed(fn, world):
+        for _ in range(2):  # the second call is timed
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+            t0 = time.perf_counter()
+            out = fn(world, *args)
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+        return out, time.perf_counter() - t0
+
+    (w1, c1, s1), t_single = timed(step, eng.world)
+    (r8, c8, s8), t_mesh = timed(stepped, rows)
+    cap = eng.config.capacity
+    held = {int(v.shape[0]) for v in columns(r8).values()}
+    whole = gather_world(r8, mesh)
+    equal = all(torch.equal(v, columns(w1)[k])
+                for k, v in columns(whole).items()) and \
+        torch.equal(c8.serialize(), c1.serialize()) and \
+        all(torch.equal(s8[k], s1[k]) for k in s1)
+    per_rank = [None] * mesh.size
+    dist.all_gather_object(per_rank, (held, equal), group=mesh.group)
+    if mesh.rank != 0:
+        return None
+    rec = dict(capacity=cap, alive=int(whole.alive.sum()),
+               rows_a_rank=sorted(set().union(*(h for h, _ in per_rank))),
+               equal=all(e for _, e in per_rank), single_s=t_single,
+               mesh_s=t_mesh)
+    log(f"multigpu_torch scale({mesh.size} ranks, {mesh.device.type}): "
+        f"{rec['alive']} entities / capacity {cap}, rows a rank "
+        f"{rec['rows_a_rank']} (capacity/n = {cap // mesh.size}); "
+        f"partitioned step equal to the unsharded step (every column, the "
+        f"camera, the counters): {rec['equal']}; wall single="
+        f"{t_single * 1e3:.1f} ms mesh={t_mesh * 1e3:.1f} ms (a record, "
+        "not a speed claim)")
+    if rec["rows_a_rank"] != [cap // mesh.size]:
+        raise RuntimeError("the entity axis is not partitioned: rows a "
+                           f"rank {rec['rows_a_rank']}")
+    if not rec["equal"]:
+        raise RuntimeError("the partitioned step differs from the "
+                           "unsharded step at scale")
+    return rec
+
+
+def run(mesh, kw, frames=1, log=print):
+    """Build, step and render ``frames`` frames sharded over ``mesh``;
+    on rank 0 also on one device; then the scale phase. Returns, on rank
+    0, the record (the gathered image under ``image``, the scale phase's
+    under ``scale``), elsewhere None; raises past the limits."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from render_engine_tpu_torch.demo.space_scene import build_space_engine
+    from render_engine_tpu_torch.logic.types import InputState
+    from render_engine_tpu_torch.parallel import (columns, gather_image,
+                                                  shard_step, shard_world)
+    from render_engine_tpu_torch.runtime.engine import config_step
     from render_engine_tpu_torch.utils.hashing import world_hash
 
     t0 = time.perf_counter()
@@ -97,9 +189,15 @@ def run(mesh, kw, frames=1, log=print):
     eng.config.render = parity
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
+    stepped = shard_step(config_step(eng.config), mesh)
+    rows = shard_world(eng.world, mesh)
+    prev = np.zeros_like(InputState.idle(0).keys)
     for i in range(frames):
-        band = sharded_frame(eng, mesh, InputState.idle(i))
+        inputs = InputState.idle(i).with_prev(prev)
+        prev = np.asarray(inputs.keys, bool)
+        rows, band, _ = sharded_frame(eng, mesh, stepped, rows, inputs)
     height = eng.config.render.height
+    held = {int(v.shape[0]) for v in columns(rows).values()}
     img = gather_image(band, mesh, height)
     rank_hashes = [None] * mesh.size
     dist.all_gather_object(rank_hashes, world_hash(eng.world),
@@ -107,6 +205,9 @@ def run(mesh, kw, frames=1, log=print):
     if mesh.device.type == "cuda":
         torch.cuda.synchronize(mesh.device)
     t_frames = time.perf_counter() - t0
+    rank_rows = [None] * mesh.size
+    dist.all_gather_object(rank_rows, sorted(held), group=mesh.group)
+    scale_rec = scale(mesh, height, log)
     if mesh.rank != 0:
         return None
     eng.reset()
@@ -120,11 +221,14 @@ def run(mesh, kw, frames=1, log=print):
                share_differing=float((diff > 1e-6).double().mean()),
                u8_hash_sharded=u8_hash(img), u8_hash_single=u8_hash(ref),
                world_hashes_ranks=rank_hashes, world_hash_single=single_hash,
-               alive=int(eng.world.alive.sum()), build_s=t_build,
-               sharded_s=t_frames)
+               alive=int(eng.world.alive.sum()),
+               rows=sorted(set().union(*map(set, rank_rows))),
+               build_s=t_build, sharded_s=t_frames)
     log(f"multigpu_torch({mesh.size} ranks, {mesh.device.type}): image "
-        f"{tuple(img.shape)}, {rec['alive']} entities, bands of "
-        f"{rec['band_rows']} rows; parity with one device: max diff "
+        f"{tuple(img.shape)}, {rec['alive']} entities, world rows a rank "
+        f"{rec['rows']} (capacity {eng.config.capacity} / {mesh.size}), "
+        f"bands of {rec['band_rows']} rows; parity with one device: max "
+        "diff "
         f"{rec['max_diff']:.2e}, {rec['share_differing']:.4%} pixels "
         f"differ; u8 hash sharded={rec['u8_hash_sharded']} single="
         f"{rec['u8_hash_single']}; world hash of every rank "
@@ -133,10 +237,14 @@ def run(mesh, kw, frames=1, log=print):
         "build included")
     if set(rank_hashes) != {single_hash}:
         raise RuntimeError("a rank's world differs from one device's")
+    cap = eng.config.capacity
+    if rec["rows"] != [cap // mesh.size if cap % mesh.size == 0 else cap]:
+        raise RuntimeError(f"world rows a rank {rec['rows']}")
     if not torch.equal(img, ref) or \
             rec["u8_hash_sharded"] != rec["u8_hash_single"]:
         raise RuntimeError("the sharded image differs from one device's")
     rec["image"] = img.cpu()
+    rec["scale"] = scale_rec
     return rec
 
 

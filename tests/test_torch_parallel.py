@@ -1,7 +1,9 @@
 """The port's multi-device package (``render_engine_tpu_torch.parallel``)
 on the CPU, mirroring ``tests/test_parallel.py``: the mesh, the world's
 sharding by entity, and the frame in bands of tile rows over gloo groups
-of spawned CPU processes, each stepping the whole world.
+of spawned CPU processes, each stepping its rows of the world
+(``scripts/multigpu_torch.py``; the partitioned step itself is
+tests/test_torch_partitioned_step.py's).
 
 Tolerances:
 * the round trip ``shard_world`` -> ``gather_world``: bit for bit (equal
@@ -274,17 +276,22 @@ def test_bands_match_the_jax_sharded_frame(monkeypatch):
 @pytest.mark.parametrize("n_ranks", [2, 4])
 def test_gloo_banded_frame(tmp_path, n_ranks):
     """``scripts/multigpu_torch.py`` over a gloo group of spawned CPU
-    processes: every rank steps the whole world, renders its band
+    processes: every rank steps its ``capacity / n`` rows of the world
+    (``shard_step``), gathers the world, renders its band
     (``render_frame_sharded``) and the bands are gathered
     (``gather_image``). Every rank's world hash equals one process's step,
     and the image equals the bands of that step rendered in one process,
-    and its whole frame, bit for bit."""
+    and its whole frame, bit for bit. The scale phase holds ``16384 / n``
+    rows a rank and equals the unsharded step."""
     out = str(tmp_path / "rec.pt")
     kw = multigpu_torch.cpu_kw(n_ranks)
     multigpu_torch.run_gloo(n_ranks, kw, out=out)
     rec = torch.load(out)
     assert rec["ranks"] == n_ranks
     assert rec["band_rows"] * n_ranks == kw["height"]
+    assert rec["rows"] == [kw["capacity"] // n_ranks]
+    assert rec["scale"]["rows_a_rank"] == [16384 // n_ranks]
+    assert rec["scale"]["equal"] and rec["scale"]["alive"] == 10006
 
     eng = build_space_engine(device="cpu", **kw)
     eng.config.record_history = False
