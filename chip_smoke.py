@@ -147,6 +147,26 @@ Phases (any failure exits non-zero; no phase catches its own):
              share the card (GLOO_CUDA_REFUSED: the functional
              all-gather DTensor issues crashes on CUDA tensors under
              gloo; PERF.md).
+  15. mesh  the partitioned step and the sharded frame as programs
+             (parallel.ShardedPrograms: CUDA graphs captured over NCCL) on
+             the one-rank NCCL group of phases 11 and 14, against the
+             Engine's captured programs: the headline's 8 step frames (one
+             of 4.5 s that fires the mine spawner) and tick-100k's 3 steps,
+             every column, the world hash, the camera and the 6 counters
+             equal (torch.equal), no kernel launched; then, at tile budgets
+             1.0, interval x slots + 1 = 7 frames of the captured sharded
+             frame against Engine.frame (image torch.equal, world hash,
+             shadow state and K1 / K2 / K3 launches each frame equal; every
+             kernel of the path launched), and an eighth frame's program
+             function run eagerly through the plain versions against its
+             replay (image within 1e-5, world and shadow tables equal); the
+             collectives a step and a frame (CommDebugMode), capture
+             seconds, graph pool MiB, and ms in turns: the captured
+             partitioned step against the Engine's captured step and the
+             step's function run eagerly, the captured sharded frame
+             against Engine.frame. On one rank DTensor issues no
+             collective: the multi-rank capture is scripts/
+             multigpu_torch.py's on 4 cards.
 Every phase drives the captured Engine. Where a phase holds a kernel
 against its plain version on a frame's own inputs (phases 2, 3, 7, 8, 10),
 that frame runs through ``Eager``, so the kernel wrappers see each call;
@@ -2271,15 +2291,11 @@ def program_name(key):
 
 
 def graph_pool_bytes(eng):
-    """Bytes of the caching allocator's segments in ``eng``'s graph pool
-    (its programs share one private pool)."""
-    import torch
+    """Bytes of ``eng``'s graph pool (an Engine's or a ShardedPrograms'
+    programs share one private pool)."""
+    from render_engine_tpu_torch.runtime.profiling import graph_pool_bytes
 
-    if eng._pool is None:
-        return 0
-    return sum(seg["total_size"]
-               for seg in torch.cuda.memory._snapshot()["segments"]
-               if tuple(seg.get("segment_pool_id", ())) == tuple(eng._pool))
+    return graph_pool_bytes(eng._pool)
 
 
 def captured_vs_eager(label, eng, drive):
@@ -2487,19 +2503,6 @@ PARTITIONED_STEPS, PARTITIONED_SPAWN_AT = 8, 5  # step 5 lasts SPAWN_DT s
 TICK_STEPS = 3
 PARTITIONED_TURNS = ("captured", "partitioned", "partitioned", "captured")
 PARTITIONED_TURN_STEPS = 5
-# why phase 14 runs no 2 gloo ranks on the one card (NCCL refuses two ranks
-# on one card): a probe of each collective in 2 processes on the H100,
-# torch 2.11 (its findings are in PERF.md)
-GLOO_CUDA_REFUSED = (
-    "gloo moves CUDA tensors through torch.distributed's all_gather_into_"
-    "tensor, all_reduce, all_gather and all_gather_object and the "
-    "functional all_reduce, but the functional all-gather DTensor issues "
-    "(_c10d_functional's all_gather_into_tensor and its wait_tensor) ends "
-    "the rank with SIGSEGV on CUDA tensors; the multi-rank evidence is the "
-    "CPU tests (2, 4 and 8 gloo ranks) and scripts/multigpu_torch.py under "
-    "torchrun on 4 cards")
-
-
 def partitioned_vs_captured(label, eng, steps, spawn_at=None):
     """``steps`` steps of ``eng``'s captured step program and of the
     partitioned step on a one-rank NCCL mesh from the same state, each
@@ -2587,6 +2590,8 @@ def phase_partitioned():
     from benchmarks import run_benchmarks_torch as RB
     from render_engine_tpu_torch.demo.space_scene import build_space_engine
 
+    from render_engine_tpu_torch.parallel import GLOO_CUDA_REFUSED
+
     out = {}
     log(f"[partitioned] 2 ranks on the one card under gloo: not run; "
         f"{GLOO_CUDA_REFUSED}")
@@ -2607,6 +2612,255 @@ def phase_partitioned():
         dist.destroy_process_group()
     log(json.dumps({"partitioned": out}))
     return out
+
+
+# phase 15: the partitioned step and the sharded frame as programs
+# (parallel.ShardedPrograms, captured over NCCL) on a one-rank NCCL group
+# against the Engine's captured programs
+MESH_STEP_TURNS = ("captured", "engine", "eager", "eager", "engine",
+                   "captured")
+MESH_FRAME_TURNS = ("sharded", "engine", "engine", "sharded") * 2
+MESH_TURN_FRAMES = 6
+
+
+def same_step(progs, eng):
+    """What a step of ``progs`` and of ``eng`` must share, each part
+    ``torch.equal``."""
+    import torch
+
+    from render_engine_tpu_torch.parallel import columns
+    from render_engine_tpu_torch.utils.hashing import world_hash
+
+    rows, want = progs.rows, eng.world
+    return {"columns": all(torch.equal(v, columns(want)[k])
+                           for k, v in columns(rows).items()),
+            "hash": world_hash(rows) == world_hash(want),
+            "camera": torch.equal(progs.camera.serialize(),
+                                  eng.camera.serialize()),
+            "counters": torch.equal(progs.drops, eng._last_drops)}
+
+
+def collectives(progs, key):
+    """The collectives one eager run of the program ``key``'s function
+    issues (scripts/multigpu_torch.collectives): total and by operation."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import multigpu_torch as MG
+
+    by_op = MG.collectives(progs, key)
+    return sum(by_op.values()), by_op
+
+
+def mesh_steps(label, eng, steps, spawn_at=None):
+    """``steps`` steps of ``eng``'s captured step program and of the
+    captured partitioned step (``ShardedPrograms.step``) from the same
+    state, each step's columns, world hash, camera and counters equal;
+    then their ms in turns with the partitioned step's function run
+    eagerly. The engine's state is put back."""
+    import numpy as np
+
+    from render_engine_tpu_torch import kernels
+    from render_engine_tpu_torch.logic.step import unpack_drop_stats
+    from render_engine_tpu_torch.parallel import ShardedPrograms, make_mesh
+    from render_engine_tpu_torch.runtime.profiling import turn_medians as tm
+
+    state = engine_state(eng)
+    progs = ShardedPrograms(eng, make_mesh(1))
+    prev = eng._prev_keys.copy()
+    alive0 = int(eng.world.alive.sum())
+    kernels.reset_launch_counts()
+    for i in range(steps):
+        inputs = frame_inputs(i).with_prev(prev)
+        prev = np.asarray(inputs.keys, bool)
+        dt = SPAWN_DT if i == spawn_at else DT
+        eng.step(inputs, dt)
+        progs.step(inputs, dt)
+        same = same_step(progs, eng)
+        if not all(same.values()):
+            raise RuntimeError(
+                f"[mesh] {label} step {i}: the captured partitioned step "
+                "differs from the Engine's captured step in "
+                f"{[k for k, v in same.items() if not v]}")
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if launched:
+        raise RuntimeError(f"[mesh] {label}: the steps launched {launched}")
+    alive = int(progs.rows.alive.sum())
+    comms = collectives(progs, ("step",))
+    log(f"[mesh] {label}: {steps} steps of the captured partitioned step "
+        f"(ShardedPrograms, one-rank NCCL group, {progs.rows.alive.shape[0]}"
+        " rows) against the Engine's captured step: every column, the world "
+        "hash, the camera and the 6 counters equal (torch.equal) after each "
+        f"step; {alive0} -> {alive} alive"
+        + (f" (step {spawn_at} lasts {SPAWN_DT} s and fires the mine "
+           "spawner)" if spawn_at is not None else "")
+        + f"; counters {unpack_drop_stats(progs.drops)}; no kernel "
+        f"launched; collectives a step on one rank: {comms[0]} {comms[1]}")
+    inputs = frame_inputs(0)
+    eager = progs.program_function(("step",))
+    mode = {}
+
+    def one():
+        if mode["which"] == "captured":
+            progs.step(inputs, DT)
+        elif mode["which"] == "engine":
+            eng.step(inputs, DT)
+        else:
+            eng._feed(inputs.pack_with_dt(DT))
+            eager(progs._state)
+
+    turns = tm(one, MESH_STEP_TURNS, lambda w: mode.update(which=w),
+               frames=PARTITIONED_TURN_STEPS, log=log, label="mesh",
+               what=f"{label} step, the captured partitioned step against "
+               "the Engine's captured step and the partitioned step's "
+               "function run eagerly (a record): ")[0]
+    secs = progs.capture_seconds()
+    rec = dict(steps=steps, alive=alive, ms=turns,
+               capture_s=sum(secs.values()),
+               pool_mib=graph_pool_bytes(progs) / 2**20,
+               collectives=comms[0])
+    log(f"[mesh] {label}: the step program captured in "
+        f"{rec['capture_s']:.2f} s (two warm-ups included), graph pool "
+        f"{rec['pool_mib']:.1f} MiB")
+    restore_state(eng, state)
+    return rec
+
+
+def mesh_frames(eng):
+    """The captured sharded frame (``ShardedPrograms.frame``) against
+    ``Engine.frame`` from the same state at tile budgets 1.0, over
+    interval x slots + 1 frames (every shadow decision's program captured,
+    one replayed): image (torch.equal), world hash, shadow state and the
+    launches of K1, K2 and K3 each frame equal; then one more frame's
+    program function run eagerly through the plain versions against its
+    replay (phase 3's limits: the image within 1e-5, the world and the
+    shadow maps equal); then ms a frame in turns. Returns the record and
+    the launches of the frames' run. The engine's state is put back."""
+    import torch
+
+    from render_engine_tpu_torch import kernels
+    from render_engine_tpu_torch.parallel import ShardedPrograms, make_mesh
+    from render_engine_tpu_torch.parallel import columns
+    from render_engine_tpu_torch.runtime import engine as E
+    from render_engine_tpu_torch.runtime.profiling import turn_medians as tm
+    from render_engine_tpu_torch.utils.hashing import world_hash
+
+    state = engine_state(eng)
+    s0 = eng.config.render
+    eng.config.render = dataclasses.replace(s0, texture_tile_budget=1.0,
+                                            shadow_tile_budget=1.0)
+    progs = ShardedPrograms(eng, make_mesh(1))
+    c = eng.config
+    frames = c.shadow_update_interval * c.shadow_slots + 1
+    kernels.reset_launch_counts()
+    run = {}
+    for i in range(frames):
+        before = dict(kernels.LAUNCHES)
+        img_s = progs.frame(frame_inputs(i), DT)
+        got = launch_delta(before)
+        for k, n in got.items():
+            run[k] = run.get(k, 0) + n
+        before = dict(kernels.LAUNCHES)
+        img_e = eng.frame(frame_inputs(i), DT)
+        want = launch_delta(before)
+        sh_s, sh_e = progs.shadow_state, eng.shadow_state
+        same = {"image": torch.equal(img_s, img_e),
+                "hash": world_hash(progs.world) == world_hash(eng.world),
+                "shadow": all(torch.equal(a, b) for a, b in zip(
+                    (sh_s.maps, sh_s.light_mats, sh_s.slot_entity,
+                     sh_s.slot_face), (sh_e.maps, sh_e.light_mats,
+                                       sh_e.slot_entity, sh_e.slot_face))),
+                "launches": got == want}
+        if not all(same.values()):
+            raise RuntimeError(
+                f"[mesh] frame {i}: the captured sharded frame differs from "
+                f"Engine.frame in {[k for k, v in same.items() if not v]} "
+                f"(launches {got} against {want})")
+    for k in MAIN_PATH:
+        if run.get(k, 0) == 0:
+            raise RuntimeError(f"[mesh] {k}: no launch in the sharded "
+                               f"frames' run {run}")
+    programs = sorted(progs.captured_programs, key=str)
+    log(f"[mesh] headline 1080p/10k, tile budgets 1.0: {frames} frames of "
+        f"the captured sharded frame against Engine.frame: images "
+        "(torch.equal), world hashes, shadow state and kernel launches "
+        f"equal each frame; programs {programs}; launches in the "
+        f"{frames} frames' run {run}")
+    # one more frame, its program's function run eagerly through the plain
+    # versions from the same state and inputs
+    i = frames
+    key = ("frame", E.shadow_schedule(
+        progs._sh_tick, progs._sh_cursor, c.shadow_update_interval,
+        progs._state.shadow[2].shape[0])[0])
+    eng._feed(frame_inputs(i).with_prev(progs._prev_keys).pack_with_dt(DT))
+    pre = progs._state.clone()
+    img = progs.frame(frame_inputs(i), DT)
+    with Plain():
+        progs.program_function(key)(pre)
+    torch.cuda.synchronize()
+    err = check_close("sharded frame program", [img], [pre.image], 1e-5)
+    rows = progs.rows
+    exact = all(torch.equal(v, columns(pre.world)[k])
+                for k, v in columns(rows).items()) and all(
+        torch.equal(a, b) for a, b in zip(progs._state.shadow, pre.shadow))
+    log(f"[mesh] frame {i}, program {key}: its replay against its function "
+        "run eagerly through the plain versions of K1, K2 and K3: image max "
+        f"abs diff {err:.3g} (tolerance 1e-5), world and shadow tables "
+        f"equal {exact}")
+    if not exact:
+        raise RuntimeError("[mesh] the sharded frame's replay and its plain "
+                           "run differ in the world or the shadow tables")
+    comms = collectives(progs, key)
+    mode = {}
+    turns = tm(lambda: (progs.frame(None, DT) if mode["which"] == "sharded"
+                        else eng.frame(None, DT)),
+               MESH_FRAME_TURNS, lambda w: mode.update(which=w),
+               frames=MESH_TURN_FRAMES, log=log, label="mesh",
+               what="headline frame, the captured sharded frame on one "
+               "rank against Engine.frame (a record): ")[0]
+    secs = progs.capture_seconds()
+    rec = dict(frames=frames, programs=len(secs),
+               capture_s=sum(secs.values()),
+               pool_mib=graph_pool_bytes(progs) / 2**20,
+               collectives=comms[0], plain_max_abs=err, ms=turns,
+               launches=run)
+    log(f"[mesh] {len(secs)} sharded frame programs captured in "
+        f"{rec['capture_s']:.2f} s (two warm-ups each included): "
+        + ", ".join(f"{program_name(k)} {v:.2f}" for k, v in sorted(
+            secs.items(), key=str))
+        + f"; graph pool {rec['pool_mib']:.1f} MiB (the Engine's "
+        f"{graph_pool_bytes(eng) / 2**20:.1f}); collectives a frame on one "
+        f"rank: {comms[0]} {comms[1]}")
+    eng.config.render = s0
+    restore_state(eng, state)
+    return rec, run
+
+
+def phase_mesh():
+    """Phase 15 (module docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    from benchmarks import run_benchmarks_torch as RB
+    from render_engine_tpu_torch.demo.space_scene import build_space_engine
+
+    out = {}
+    init_one_rank_nccl()
+    try:
+        eng = build_space_engine(device="cuda", **SLICE)
+        eng.config.record_history = False
+        out["headline_step"] = mesh_steps(
+            "headline 1080p/10k", eng, PARTITIONED_STEPS,
+            spawn_at=PARTITIONED_SPAWN_AT)
+        out["headline_frame"], launches = mesh_frames(eng)
+        del eng
+        torch.cuda.empty_cache()
+        _, eng = RB.bench_tick(scale=1.0, frames=1, burst=2)
+        out["tick_step"] = mesh_steps("tick-100k", eng, TICK_STEPS)
+        del eng
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log(json.dumps({"mesh": out}))
+    return launches
 
 
 def main() -> int:
@@ -2677,6 +2931,7 @@ def main() -> int:
     phase_configs()
     phase_programs()
     phase_partitioned()
+    launches_m = phase_mesh()
     # the two branch rows take their launches from their own phase's run
     rec.update(resolve_full_frame=rec_c, fused_shade_tile_lists=rec_l)
     for name, run, n in (("resolve_full_frame", launches_c, frames_c),
@@ -2688,7 +2943,8 @@ def main() -> int:
 
     kern = [dict(name=n, route="cuda", source=src, replaces=rep,
                  launches=launches[key], launches_per_frame=per_frame[n],
-                 replay_launches=replay_launches.get(key, 0), **rec[n])
+                 replay_launches=replay_launches.get(key, 0),
+                 sharded_frame_launches=launches_m.get(key, 0), **rec[n])
             for n, (key, src, rep) in KERNELS.items()]
     # K2 over every tile also carries the non-fused frame (phase 12): two
     # launches over every tile, one of each layer

@@ -121,9 +121,8 @@ def all_gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     send = t.contiguous()
     if send.dtype == torch.bool:
         send = send.view(torch.uint8)
-    parts = [torch.empty_like(send) for _ in range(mesh.size)]
-    dist.all_gather(parts, send, group=mesh.group)
-    out = torch.cat(parts)
+    out = send.new_empty((mesh.size * send.shape[0],) + send.shape[1:])
+    dist.all_gather_into_tensor(out, send, group=mesh.group)
     return out.view(torch.bool) if t.dtype == torch.bool else out
 
 

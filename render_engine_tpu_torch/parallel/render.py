@@ -35,6 +35,7 @@ from render_engine_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 from render_engine_tpu_torch.render.frame import (RenderSettings,
                                                   frame_inputs,
                                                   tiled_fused_core)
+from render_engine_tpu_torch.utils import consts
 
 
 def render_frame_band(world, camera, bank, settings: RenderSettings, *,
@@ -67,7 +68,7 @@ def render_frame_band(world, camera, bank, settings: RenderSettings, *,
     if rows.shape[0] < band:
         rows = torch.cat([rows, rows.new_zeros(band - rows.shape[0], w, 3)])
     batch = f["batch"]
-    shift = torch.tensor([0.0, float(y_off)], device=batch.xy.device)
+    shift = consts.const((0.0, float(y_off)), device=batch.xy.device)
     return tiled_fused_core(
         dataclasses.replace(batch, xy=batch.xy - shift), f["lights"], bank,
         settings, camera, width=w, h_total=h, h_local=band,

@@ -132,6 +132,15 @@ def _store_world(dst: W.World, src: W.World):
         _store(col, src.comps[name])
 
 
+def _store_shadow(st: ProgramState, sh):
+    """A shadow update's tables into the static buffers (None: no
+    shadows)."""
+    if sh is not None:
+        for dst, src in zip(st.shadow, (sh.maps, sh.light_mats,
+                                        sh.slot_entity, sh.slot_face)):
+            _store(dst, src)
+
+
 def _same_layout(a, b) -> bool:
     return (a.shape == b.shape and a.dtype == b.dtype
             and a.device == b.device)
@@ -188,6 +197,51 @@ class _Program:
         self.run()
         for k, n in self.launches.items():
             kernels.LAUNCHES[k] += n
+
+
+def capture_program(fn, state: ProgramState, pool,
+                    error_mode: str = "global") -> _Program:
+    """``fn(state)`` captured as a CUDA graph over ``state``'s buffers in
+    the graph pool ``pool``, after two warm-up runs on a side stream over a
+    copy of the state (the first builds the kernels and uploads the cached
+    constants; the second, like the capture, runs with every operation
+    that waits for the device raising). The kernel launches the capture
+    counted are the program's; warm-up and capture add none to
+    ``kernels.LAUNCHES``. ``error_mode`` is ``torch.cuda.graph``'s
+    ``capture_error_mode``."""
+    t0 = time.perf_counter()
+    device = state.camv.device
+    counted = dict(kernels.LAUNCHES)
+    scratch = state.clone()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn(scratch)
+        with _sync_errors():
+            fn(scratch)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    keep: list = []
+    mark = dict(kernels.LAUNCHES)
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode=error_mode):
+        with _sync_errors(), consts.holding(keep):
+            fn(state)
+    launches = {k: n - mark.get(k, 0)
+                for k, n in kernels.LAUNCHES.items()
+                if n != mark.get(k, 0)}
+    # warm-up and capture run nothing of the frame
+    kernels.LAUNCHES.update(counted)
+    return _Program(graph.replay, launches, keep, time.perf_counter() - t0)
+
+
+def shadow_schedule(tick: int, cursor: int, interval: int, slots: int):
+    """One frame of the shadow schedule on the host, as
+    ``render/shadows.py``'s ``render_shadow_map`` advances it: returns
+    ``(decision, tick, cursor)`` with the decision ``"skip"`` where the
+    interval gate skips, else the round-robin slot of this map frame."""
+    if interval > 1 and tick % interval != 0:
+        return "skip", tick + 1, cursor
+    return cursor % slots, tick + 1, cursor + 1
 
 
 def config_step(cfg: EngineConfig):
@@ -539,13 +593,6 @@ class Engine:
                 lov_bias=cfg.shadow_lov_bias,
                 caster_mask=cfg.shadow_caster_mask)
 
-        def store_shadow(st, sh):
-            if sh is not None:
-                for dst, src in zip(st.shadow, (sh.maps, sh.light_mats,
-                                                sh.slot_entity,
-                                                sh.slot_face)):
-                    _store(dst, src)
-
         def draw(st, world, camera, sh, inputs):
             st.image.copy_(render_frame(
                 world, camera, bank, settings, cubemap=cubemap, atlas=atlas,
@@ -563,11 +610,11 @@ class Engine:
             sh = update(st, variant, st.world, camera)
             draw(st, st.world, camera, sh,
                  InputState.unpack_with_dt(st.packed)[0])
-            store_shadow(st, sh)
+            _store_shadow(st, sh)
 
         def update_shadow(st, variant):
-            store_shadow(st, update(st, variant, st.world,
-                                    cam0.apply_serialized(st.camv)))
+            _store_shadow(st, update(st, variant, st.world,
+                                     cam0.apply_serialized(st.camv)))
 
         def frame_fused(st, variant):
             world, camera, inputs, drops = advance(st)
@@ -578,9 +625,10 @@ class Engine:
             _store_world(st.world, world)
             _store(st.camv, camera.serialize())
             _store(st.drops, drops)
-            store_shadow(st, sh)
+            _store_shadow(st, sh)
             st.image.copy_(img)
 
+        self._shadow_update = update
         self._render = render_view
         self._render_shadowed = render_shadowed
         self._update_shadow = update_shadow
@@ -610,33 +658,11 @@ class Engine:
             return self._capture_graph(fn)
 
     def _capture_graph(self, fn) -> _Program:
-        t0 = time.perf_counter()
-        counted = dict(kernels.LAUNCHES)
-        scratch = self._state.clone()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            fn(scratch)
-            with _sync_errors():
-                fn(scratch)
-        torch.cuda.current_stream(self.device).wait_stream(side)
         if not self._programs:
             # a private pool lives while a graph uses it: the programs
             # share one, and a new one follows the last program dropped
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        keep: list = []
-        mark = dict(kernels.LAUNCHES)
-        with torch.cuda.graph(graph, pool=self._pool):
-            with _sync_errors(), consts.holding(keep):
-                fn(self._state)
-        launches = {k: n - mark.get(k, 0)
-                    for k, n in kernels.LAUNCHES.items()
-                    if n != mark.get(k, 0)}
-        # warm-up and capture run nothing of the frame
-        kernels.LAUNCHES.update(counted)
-        return _Program(graph.replay, launches, keep,
-                        time.perf_counter() - t0)
+        return capture_program(fn, self._state, self._pool)
 
     def _program(self, key: tuple):
         """The program ``key``, captured at its first use."""
@@ -677,14 +703,11 @@ class Engine:
         if self._state.shadow is None:
             return None
         self._views.pop("shadow", None)
-        tick = self._sh_tick
-        self._sh_tick += 1
-        interval = self.config.shadow_update_interval
-        if interval > 1 and tick % interval != 0:
-            return "skip"
-        slot = self._sh_cursor % self._state.shadow[2].shape[0]
-        self._sh_cursor += 1
-        return slot
+        decision, self._sh_tick, self._sh_cursor = shadow_schedule(
+            self._sh_tick, self._sh_cursor,
+            self.config.shadow_update_interval,
+            self._state.shadow[2].shape[0])
+        return decision
 
     # -- frame loop ----------------------------------------------------------
     def step(self, inputs: InputState, dt: float):

@@ -12,7 +12,8 @@ and adds what the benchmarks share: ``require_device`` / ``device_info``
 ``device_activity`` (a trace's device rows: their sum, the time the device
 was busy and their span),
 ``timed`` and ``turn_medians`` (two variants compared in alternating turns
-inside one process, because the host clock drifts between runs).
+inside one process, because the host clock drifts between runs) and
+``graph_pool_bytes`` (the memory of a set of captured programs).
 
 PyTorch returns before the device finishes, so a stage that ends in device
 work passes ``sync=`` a tensor or a nest of tensors: the timer then waits
@@ -178,3 +179,13 @@ def turn_medians(frame, turns, start, frames=10, device="cuda", log=print,
             f"{', '.join(f'{t:.2f}' for t in m)} ms; median "
             f"{statistics.median(m):.2f} ms/frame")
     return {k: statistics.median(v) for k, v in meds.items()}, meds
+
+
+def graph_pool_bytes(pool) -> int:
+    """Bytes of the caching allocator's segments in the CUDA graph pool
+    ``pool`` (``torch.cuda.graph_pool_handle()``; 0 for None)."""
+    if pool is None:
+        return 0
+    return sum(seg["total_size"]
+               for seg in torch.cuda.memory._snapshot()["segments"]
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))

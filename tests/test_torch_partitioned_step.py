@@ -8,8 +8,11 @@ The ranks run once for the module (``tests/torch_ranks.py``
 size for 4 frames and the crossing world for 2 steps (a spawn landing on
 another rank, a collision pair across ranks, the user on the last rank, an
 owned-entity despawn running across ranks, the collision query budget
-overflowing, mines referencing their parents); at 8 ranks also the bench's scale (10k asteroids at
-capacity 16384) and a capacity 8 ranks do not divide.
+overflowing, mines referencing their parents), the same world with an
+asteroid callback that writes ``col[rows] = v`` by global row numbers
+(``written``), and writes by row number straight into split columns; at
+8 ranks also the bench's scale (10k asteroids at capacity 16384) and a
+capacity 8 ranks do not divide.
 
 Tolerances:
 * against the port's unsharded step (``make_step`` in this process): bit
@@ -48,8 +51,9 @@ import torch_ranks as TR
 from torch_threads import one_torch_thread  # noqa: F401
 
 RANKS = (2, 4, 8)
-JOBS = {2: ("demo", "crossing"), 4: ("demo", "crossing"),
-        8: ("demo", "crossing", "scale", "odd")}
+JOBS = {2: ("demo", "crossing", "written"),
+        4: ("demo", "crossing", "written"),
+        8: ("demo", "crossing", "written", "scale", "odd")}
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +72,7 @@ def partitioned(tmp_path_factory):
 def unsharded():
     """Each job through the port's unsharded step in this process."""
     out = {}
-    for name in ("demo", "crossing", "scale", "odd"):
+    for name in ("demo", "crossing", "written", "scale", "odd"):
         world, camera, (mn, mx), step, frames = TR.job(name)
         out[name] = TR.drive(world, camera, frames,
                              lambda w, c, i, d, step=step, mn=mn, mx=mx:
@@ -189,19 +193,44 @@ def test_scale_partitions_the_entity_axis(partitioned, unsharded):
 
 
 @pytest.mark.parametrize("n_ranks", RANKS)
-def test_index_put_into_a_split_column_raises(partitioned, n_ranks):
-    """An in-place write by global row numbers into a column placed
-    ``Shard(0)`` (``col[idx] = v`` in a callback) raises rather than
-    writing a rank's rows by global row numbers: the partitioned step's
-    own error, which names the way out, where its ``index_put_`` rule
-    applies (PyTorch 2.11), or DTensor's in-place placement error where
-    DTensor's own single-dimension rule takes precedence (2.13)."""
-    msg = partitioned[n_ranks]["index_put"]
-    assert msg is not None and "Shard(dim=0)" in msg
-    if torch.__version__ >= "2.13":
-        assert "in-place operations that require placement changes" in msg
-    else:
-        assert "split over the ranks" in msg and "torch.where" in msg
+def test_index_put_into_a_split_column(partitioned, unsharded, jax_written,
+                                       n_ranks):
+    """A write by global row numbers into a column placed ``Shard(0)``
+    lands on the rank that owns each row, as JAX's ``col.at[rows].set(v)``
+    on a world sharded by entity. Directly (``torch_ranks.
+    _index_put_writes``): ``col[rows] = v``, ``m[rows, 1] = v`` and
+    ``index_put_`` with ``accumulate``, rows on two ranks, each rank
+    keeping its rows and the placement. In the step: the crossing world
+    with ``torch_ranks.writing_asteroid_logic`` (``vel[rows] = v``,
+    ``hit[rows] = True``, rows on several ranks) equals the unsharded step
+    bit for bit, every column staying ``Shard(0)``, and the JAX package's
+    sharded step with the same callback written with ``.at[].set``."""
+    from torch.distributed.tensor import Shard
+
+    rec = partitioned[n_ranks]["index_put"]
+    n = 4 * n_ranks
+    base = torch.cat([torch.arange(4.0) + 10.0 * r for r in range(n_ranks)])
+    rows = torch.tensor([1, n - 1, 6])
+    col, mat, acc = base.clone(), torch.stack([base, -base], 1), base.clone()
+    col[rows] = torch.tensor([-1.0, -2.0, -3.0])
+    mat[rows, 1] = 7.0
+    acc.index_put_((rows,), torch.ones(3), accumulate=True)
+    for name, want in (("col", col), ("mat", mat), ("acc", acc)):
+        assert torch.equal(rec[name]["whole"], want), name
+        assert torch.equal(rec[name]["local"], want[:4]), name
+        assert rec[name]["placements"] == (str(Shard(0)),), name
+
+    world, _, _ = unsharded["written"][0]
+    assert torch.equal(world["velocity"][list(TR.WRITTEN_ROWS)],
+                       torch.tensor(TR.WRITTEN_VELOCITY))
+    row_ranks = {r // (TR.CROSS_KW["capacity"] // n_ranks)
+                 for r in TR.WRITTEN_ROWS}
+    assert len(row_ranks) == min(n_ranks, 4)
+    assert_equal_to_unsharded(partitioned[n_ranks]["written"],
+                              unsharded["written"])
+    assert_split(partitioned[n_ranks]["written"], 2)
+    assert_close_to_jax(partitioned[n_ranks]["written"]["frames"],
+                        jax_written, TR.CROSS_KW["capacity"] // 8)
 
 
 def test_capacity_the_ranks_do_not_divide(partitioned, unsharded):
@@ -214,23 +243,26 @@ def test_capacity_the_ranks_do_not_divide(partitioned, unsharded):
     assert_equal_to_unsharded(rec, unsharded["odd"])
 
 
-def test_partitioned_step_matches_the_jax_sharded_step(partitioned):
-    """The crossing world, from the same numpy snapshot, through the JAX
-    package's step jitted with ``in_shardings=(world_sharding, rep, rep,
-    rep)`` on its 8-device CPU mesh and through the port's 8 gloo ranks,
-    2 steps."""
+def jax_sharded_crossing(logic):
+    """The crossing world, from the same numpy snapshot as the ranks',
+    through the JAX package's step with the mines' reference callback and
+    ``logic`` (type index -> callback) jitted with ``in_shardings=(
+    world_sharding, rep, rep, rep)`` on its 8-device CPU mesh, 2 steps:
+    per step the world, the camera, the counters and a shard's rows."""
     if len(jax.devices()) < 8:
         pytest.fail(f"the JAX CPU mesh has {len(jax.devices())} devices")
     world_t, _, _, _, frames = TR.job("crossing")
     jeng = JS.build_space_engine(**TR.CROSS_KW)
+
     def mine_reference_logic(world, dt, mask, cs):
         parent = world["parent"]
         return JC.with_add_reference(cs, world, mask & (parent >= 0), parent)
 
-    types = tuple(dataclasses.replace(t, out_of_bounds=J_OOB_DELETE,
-                                      logic=mine_reference_logic)
-                  if t.index == JS.TYPE_MINE else t
-                  for t in JS.ENTITY_TYPES)
+    logic = {JS.TYPE_MINE: mine_reference_logic, **logic}
+    types = tuple(dataclasses.replace(
+        t, logic=logic[t.index], out_of_bounds=(
+            J_OOB_DELETE if t.index == JS.TYPE_MINE else t.out_of_bounds))
+        if t.index in logic else t for t in JS.ENTITY_TYPES)
     cfg = jeng.config
     step = make_jax_step(types, logic_radius=cfg.logic_radius,
                          spawn_budget=cfg.spawn_budget,
@@ -247,9 +279,7 @@ def test_partitioned_step_matches_the_jax_sharded_step(partitioned):
                                          bank.aabb_max),
                  in_shardings=(wsh, rep, rep, rep))
     world, camera = jax.device_put(world, wsh), jeng.camera
-    prev = None
-    rec = partitioned[8]["crossing"]["frames"]
-    reg = world_t.config.registry
+    prev, out = None, []
     for f in range(frames):
         inputs = JInput.deserialize(TR.frame_inputs(f).serialize())
         if prev is not None:
@@ -258,8 +288,20 @@ def test_partitioned_step_matches_the_jax_sharded_step(partitioned):
         with mesh:
             world, camera, stats = fn(world, camera, inputs,
                                       jnp.float32(TR.DT))
-        shard_rows = world.comps["position"].addressable_shards[0].data
-        assert shard_rows.shape[0] == TR.CROSS_KW["capacity"] // 8
+        out.append((world, camera, stats, world.comps["position"]
+                    .addressable_shards[0].data.shape[0]))
+    return out
+
+
+def assert_close_to_jax(rec, jax_steps, shard_rows):
+    """Each step of a rank record against the JAX package's: integer
+    columns, ``alive`` and the counters exact, floats rtol 1e-5 / atol
+    1e-4, the camera rtol / atol 1e-5; the JAX world split into
+    ``shard_rows`` rows a device."""
+    reg = TR.job("crossing")[0].config.registry
+    assert len(rec) == len(jax_steps)
+    for f, (world, camera, stats, rows) in enumerate(jax_steps):
+        assert rows == shard_rows
         got = rec[f]["columns"]
         np.testing.assert_array_equal(got["alive"].numpy(),
                                       np.asarray(world.alive))
@@ -279,3 +321,29 @@ def test_partitioned_step_matches_the_jax_sharded_step(partitioned):
                                    np.asarray(camera.serialize()),
                                    rtol=1e-5, atol=1e-5)
         assert rec[f]["stats"] == {k: int(v) for k, v in stats.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_written():
+    """``jax_sharded_crossing`` with the asteroids' orbit followed by the
+    write ``torch_ranks.writing_asteroid_logic`` makes, as ``.at[].set``."""
+    rows = jnp.asarray(TR.WRITTEN_ROWS)
+
+    def writing_asteroid_logic(world, dt, mask, cs):
+        cs = JS.asteroid_orbit_logic(world, dt, mask, cs)
+        vel = world["velocity"].at[rows].set(
+            jnp.asarray(TR.WRITTEN_VELOCITY, jnp.float32))
+        hit = jnp.zeros_like(mask).at[rows].set(True)
+        return JC.with_update(cs, "velocity", vel, hit)
+
+    return jax_sharded_crossing({JS.TYPE_ASTEROID: writing_asteroid_logic})
+
+
+def test_partitioned_step_matches_the_jax_sharded_step(partitioned):
+    """The crossing world, from the same numpy snapshot, through the JAX
+    package's step jitted with ``in_shardings=(world_sharding, rep, rep,
+    rep)`` on its 8-device CPU mesh and through the port's 8 gloo ranks,
+    2 steps."""
+    assert_close_to_jax(partitioned[8]["crossing"]["frames"],
+                        jax_sharded_crossing({}),
+                        TR.CROSS_KW["capacity"] // 8)

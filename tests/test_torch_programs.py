@@ -32,7 +32,6 @@ graphs.
   the middle of the burst only, as the JAX package's ``run_frames``.
 """
 
-import contextlib
 import copy
 import dataclasses
 
@@ -54,7 +53,6 @@ from render_engine_tpu_torch.demo import space_scene as TS
 from render_engine_tpu_torch.logic.step import unpack_drop_stats
 from render_engine_tpu_torch.logic.types import KEY_W, NUM_KEYS
 from render_engine_tpu_torch.logic.types import InputState as TInput
-from render_engine_tpu_torch.render import raster_pallas as RP
 from render_engine_tpu_torch.render import skybox as SB
 from render_engine_tpu_torch.render.frame import to_srgb_u8
 from render_engine_tpu_torch.runtime.history import HistoryLog
@@ -62,6 +60,7 @@ from render_engine_tpu_torch.runtime.replay import Player
 from render_engine_tpu_torch.utils.hashing import world_hash
 
 from test_torch_shadows import assert_state_close
+from host_traffic import no_host_traffic
 from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(width=256, height=192, capacity=128, num_asteroids=40,
@@ -203,73 +202,6 @@ def test_device_unpack_matches_jax(seed):
 
 
 # ------------------------------------------------------------ host traffic
-@contextlib.contextmanager
-def no_host_traffic():
-    """Every read of a tensor's value on the host and every upload
-    raises (an index by a 0-dim tensor, a boolean mask, a list or an array
-    too, which PyTorch reads or uploads), except inside K1's plain
-    version."""
-    def refuse(name):
-        def call(*a, **kw):
-            raise AssertionError(f"host traffic: {name}")
-        return call
-
-    saved = [(obj, n, getattr(obj, n)) for obj, names in (
-        (torch.Tensor, ("item", "tolist", "numpy", "__bool__", "__int__",
-                        "__float__", "__index__")),
-        (torch, ("tensor", "as_tensor", "from_numpy"))) for n in names]
-
-    getitem, setitem = torch.Tensor.__getitem__, torch.Tensor.__setitem__
-
-    def host_index(index):
-        # a 0-dim tensor index is read on the host as a Python number; a
-        # boolean mask is counted on the host (its nonzero entries); a
-        # list or an array is uploaded
-        parts = index if isinstance(index, tuple) else (index,)
-        return any(isinstance(i, (list, np.ndarray)) or (
-            isinstance(i, torch.Tensor)
-            and (i.dim() == 0 or i.dtype == torch.bool)) for i in parts)
-
-    def checked_get(t, index):
-        if host_index(index):
-            raise AssertionError("host traffic: an index read or uploaded")
-        return getitem(t, index)
-
-    def checked_set(t, index, value):
-        if host_index(index):
-            raise AssertionError("host traffic: an index read or uploaded")
-        return setitem(t, index, value)
-
-    def patch():
-        for obj, n, _ in saved:
-            setattr(obj, n, refuse(n))
-        torch.Tensor.__getitem__ = checked_get
-        torch.Tensor.__setitem__ = checked_set
-
-    def lift():
-        for obj, n, fn in saved:
-            setattr(obj, n, fn)
-        torch.Tensor.__getitem__ = getitem
-        torch.Tensor.__setitem__ = setitem
-
-    plain = RP.tile_raster_reference
-
-    def k1_plain(*a, **kw):
-        lift()
-        try:
-            return plain(*a, **kw)
-        finally:
-            patch()
-
-    RP.tile_raster_reference = k1_plain
-    patch()
-    try:
-        yield
-    finally:
-        lift()
-        RP.tile_raster_reference = plain
-
-
 @pytest.fixture(scope="module")
 def small():
     eng = TS.build_space_engine(device="cpu", **SMALL)

@@ -119,6 +119,38 @@ def crossing_types():
                  for t in TS.ENTITY_TYPES)
 
 
+# rows the writing callback sets by global row number: at 2, 4 and 8 ranks
+# they lie on 2, 4 and 4 ranks (swarm mines, the producer, a swarm mine)
+WRITTEN_ROWS = (20, 700, 1500, 1950)
+WRITTEN_VELOCITY = ((0.0, 0.0, 5.0), (0.0, -2.5, 0.0), (1.5, 0.0, 0.0),
+                    (-3.0, 0.0, 4.0))
+
+
+def writing_asteroid_logic(world, dt, mask, cs):
+    """The asteroids' orbit, and then a write by global row numbers into
+    per-entity columns, JAX's ``col.at[rows].set(v)``: the velocity of
+    the rows ``WRITTEN_ROWS`` and the mask that queues it."""
+    from render_engine_tpu_torch.demo import space_scene as TS
+    from render_engine_tpu_torch.ecs import changes as C
+
+    cs = TS.asteroid_orbit_logic(world, dt, mask, cs)
+    rows = torch.tensor(WRITTEN_ROWS)
+    vel = world["velocity"].clone()
+    vel[rows] = torch.tensor(WRITTEN_VELOCITY)
+    hit = torch.zeros_like(mask)
+    hit[rows] = True
+    return C.with_update(cs, "velocity", vel, hit)
+
+
+def writing_types():
+    """``crossing_types`` with the asteroids' ``writing_asteroid_logic``."""
+    from render_engine_tpu_torch.demo import space_scene as TS
+
+    return tuple(dataclasses.replace(t, logic=writing_asteroid_logic)
+                 if t.index == TS.TYPE_ASTEROID else t
+                 for t in crossing_types())
+
+
 def crossing_world(eng, seed=3):
     """The demo scene at capacity 2048 with its rows moved and entities
     added so that one step crosses ranks everywhere it can: the wormhole
@@ -201,22 +233,25 @@ def crossing_world(eng, seed=3):
 
 def job(name):
     """(world, camera, bank boxes, step, frames) of a named case: the
-    demo at PAR_KW (4 frames), the crossing world (2 steps), the bench's
-    scale (10k asteroids at capacity 16384, 1 step) and the demo at a
-    capacity 8 ranks do not divide (60, 2 frames)."""
+    demo at PAR_KW (4 frames), the crossing world (2 steps; ``written``:
+    the same with ``writing_types``), the bench's scale (10k asteroids at
+    capacity 16384, 1 step) and the demo at a capacity 8 ranks do not
+    divide (60, 2 frames)."""
     from render_engine_tpu_torch.demo.space_scene import build_space_engine
     from render_engine_tpu_torch.runtime.engine import config_step
 
-    kw = {"demo": PAR_KW, "crossing": CROSS_KW,
+    kw = {"demo": PAR_KW, "crossing": CROSS_KW, "written": CROSS_KW,
           "scale": dict(PAR_KW, capacity=16384, num_asteroids=10000,
                         max_tris=2048),
           "odd": dict(PAR_KW, capacity=60)}[name]
     eng = build_space_engine(device="cpu", **kw)
     world, cfg = eng.world, eng.config
-    if name == "crossing":
+    if name in ("crossing", "written"):
         world = crossing_world(eng)
-        cfg = dataclasses.replace(cfg, entity_types=crossing_types())
-    frames = {"demo": 4, "crossing": 2, "scale": 1, "odd": 2}[name]
+        cfg = dataclasses.replace(cfg, entity_types=(
+            crossing_types() if name == "crossing" else writing_types()))
+    frames = {"demo": 4, "crossing": 2, "written": 2, "scale": 1,
+              "odd": 2}[name]
     return (world, eng.camera, (eng.bank.aabb_min, eng.bank.aabb_max),
             config_step(cfg), frames)
 
@@ -301,32 +336,45 @@ def partitioned(rank, n_ranks, store, plan, out):
                         device=torch.device("cpu"), group=group)
             recs[n] = {name: _partitioned_job(name, mesh, seen, unsplit)
                        for name in names}
-            recs[n]["index_put"] = _index_put_error(mesh)
+            recs[n]["index_put"] = _index_put_writes(mesh)
         if rank == 0:
             torch.save(recs, out)
     finally:
         dist.destroy_process_group()
 
 
-def _index_put_error(mesh):
-    """The error that an in-place write by global row numbers into a
-    column placed ``Shard(0)`` raises under the partitioned step's rules
-    (``parallel/step.py``), as ``"type: message"``, or None."""
+def _index_put_writes(mesh):
+    """In-place writes by global row numbers into columns placed
+    ``Shard(0)``, 4 rows a rank, under the partitioned step's mode
+    (``parallel/step.py``): ``col[rows] = v`` into a vector, a row of a
+    matrix's columns (``m[rows, 1] = v``) and ``index_put_`` with
+    ``accumulate``; each rank's rows and the columns gathered whole, with
+    the placements after the writes."""
     from torch.distributed.tensor import DTensor, Shard
     from torch.distributed.tensor.experimental import implicit_replication
 
     from render_engine_tpu_torch.parallel.step import (_device_mesh,
+                                                       _GlobalRows,
                                                        _register_rules)
 
     _register_rules()
-    col = DTensor.from_local(torch.zeros(4), _device_mesh(mesh), [Shard(0)],
-                             run_check=False)
-    try:
-        with implicit_replication():
-            col[torch.tensor([1, 6])] = torch.ones(2)
-    except Exception as e:  # noqa: BLE001 - the test reads which one
-        return f"{type(e).__name__}: {e}"
-    return None
+    dmesh = _device_mesh(mesh)
+    base = torch.arange(4.0) + 10.0 * mesh.rank
+
+    def split(t):
+        return DTensor.from_local(t.clone(), dmesh, [Shard(0)],
+                                  run_check=False)
+
+    col, mat, acc = split(base), split(torch.stack([base, -base], 1)), \
+        split(base)
+    rows = torch.tensor([1, 4 * mesh.size - 1, 6])
+    with implicit_replication(), _GlobalRows():
+        col[rows] = torch.tensor([-1.0, -2.0, -3.0])
+        mat[rows, 1] = 7.0
+        acc.index_put_((rows,), torch.ones(3), accumulate=True)
+    return {name: dict(local=t.to_local().clone(), whole=t.full_tensor(),
+                       placements=tuple(map(str, t.placements)))
+            for name, t in (("col", col), ("mat", mat), ("acc", acc))}
 
 
 def not_split(world):
@@ -378,3 +426,123 @@ def _partitioned_job(name, mesh, seen, unsplit):
                                           comms=list(REFERENCE_COMMS)),
                            group=mesh.group)
     return dict(frames=frames_out, ranks=per_rank)
+
+
+# --- the sharded programs (tests/test_torch_partitioned_programs.py) -----
+
+def _state_record(st):
+    """A ``ProgramState``'s buffers, cloned: this rank's rows, the camera
+    vector, the shadow tables, the counters and the image."""
+    from render_engine_tpu_torch.parallel import columns
+
+    return dict(rows={k: v.clone() for k, v in columns(st.world).items()},
+                camv=st.camv.clone(), drops=st.drops.clone(),
+                shadow=None if st.shadow is None
+                else tuple(t.clone() for t in st.shadow),
+                image=st.image.clone())
+
+
+def _same_record(a, b):
+    return all(torch.equal(a["rows"][k], b["rows"][k]) for k in a["rows"]) \
+        and all(torch.equal(a[k], b[k]) for k in ("camv", "drops", "image")) \
+        and (a["shadow"] is None) == (b["shadow"] is None) and (
+            a["shadow"] is None or all(torch.equal(x, y) for x, y in
+                                       zip(a["shadow"], b["shadow"])))
+
+
+def _without_host_traffic(fn, st):
+    """``fn(st)`` under ``host_traffic.no_host_traffic``: None, or the
+    refusal's message."""
+    from host_traffic import no_host_traffic
+
+    try:
+        with no_host_traffic():
+            fn(st)
+    except AssertionError as e:
+        return str(e)
+    return None
+
+
+def sharded_programs(rank, n_ranks, store, plan, frames, steps, out):
+    """One of ``n_ranks`` spawned CPU ranks: for each rank count ``n`` of
+    ``plan``, the first ``n`` ranks form a gloo group and run
+    ``ShardedPrograms`` of the demo at ``multigpu_torch.cpu_kw(n)`` with
+    ``multigpu_torch.PARITY_BUDGETS``: ``frames`` frames on
+    ``frame_inputs``, then ``steps`` steps on the same inputs. Then, on a
+    copy of the state, each program's function runs eagerly twice, the
+    second time under ``no_host_traffic`` (a capture's warm-ups), and
+    once more from the same copy. Rank 0 saves, per rank count, each
+    frame's image, gathered columns, world hash, camera vector, counters
+    and shadow state, each step's, the programs held, every rank's rows a
+    column, and the eager runs' refusals and agreement."""
+    import multigpu_torch as MG
+
+    from render_engine_tpu_torch.demo.space_scene import build_space_engine
+    from render_engine_tpu_torch.logic.step import unpack_drop_stats
+    from render_engine_tpu_torch.parallel import (Mesh, ShardedPrograms,
+                                                  columns)
+    from render_engine_tpu_torch.utils.hashing import world_hash
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=n_ranks, rank=rank)
+    try:
+        recs = {}
+        for n in plan:
+            group = dist.new_group(list(range(n)))
+            if rank >= n:
+                continue
+            mesh = Mesh(axis_name="world", size=n, rank=rank,
+                        device=torch.device("cpu"), group=group)
+            eng = build_space_engine(device="cpu", **MG.cpu_kw(n))
+            eng.config.record_history = False
+            eng.config.render = dataclasses.replace(eng.config.render,
+                                                    **MG.PARITY_BUDGETS)
+            progs = ShardedPrograms(eng, mesh)
+
+            def record(img):
+                whole, sh = progs.world, progs.shadow_state
+                return dict(image=img, columns=columns(whole),
+                            hash=world_hash(whole),
+                            camera=progs.camera.serialize(),
+                            stats=unpack_drop_stats(progs.drops),
+                            shadow=(sh.maps, sh.light_mats, sh.slot_entity,
+                                    sh.slot_face, sh.cursor, sh.tick))
+
+            rec = dict(frames=[], steps=[])
+            for i in range(frames):
+                rec["frames"].append(record(progs.frame(frame_inputs(i),
+                                                        DT)))
+            for i in range(steps):
+                progs.step(frame_inputs(i), DT)
+                rec["steps"].append(record(None))
+            rec["programs"] = sorted(progs.captured_programs, key=str)
+            rec["rows"] = {k: int(v.shape[0])
+                           for k, v in columns(progs.rows).items()}
+            eager = {}
+            for key in (("frame", 1), ("step",)):
+                fn = progs.program_function(key)
+                st = progs._state.clone()
+                first, second = st.clone(), st.clone()
+                fn(first)
+                refused = _without_host_traffic(fn, second)
+                again = st.clone()
+                fn(again)
+                eager[key] = dict(
+                    refused=refused,
+                    same=_same_record(_state_record(first),
+                                      _state_record(second))
+                    and _same_record(_state_record(first),
+                                     _state_record(again)),
+                    changed=not _same_record(_state_record(first),
+                                             _state_record(st)))
+            rec["eager"] = eager
+            per_rank = [None] * n
+            dist.all_gather_object(per_rank, dict(rows=rec["rows"],
+                                                  eager=eager), group=group)
+            rec["ranks"] = per_rank
+            recs[n] = rec
+        if rank == 0:
+            torch.save(recs, out)
+    finally:
+        dist.destroy_process_group()
