@@ -167,6 +167,27 @@ Phases (any failure exits non-zero; no phase catches its own):
              against Engine.frame. On one rank DTensor issues no
              collective: the multi-rank capture is scripts/
              multigpu_torch.py's on 4 cards.
+  16. default-route the JAX package's default render route,
+             RenderSettings(fused_shading=False), through the Engine's
+             captured programs at the headline's size (build_space_engine
+             at 1080p with 10,000 asteroids and the demo's shadows, the
+             setting made the engine's initial one): the native OBJ parser
+             loaded and the station's parse equal to the Python parse, with
+             the ms of each; 33 captured frames, each launching K1 twice
+             on map frames and once on the rest, K2 twice (every tile of
+             each layer) and no K3, a finite lit image, all 13 drop
+             counters 0, peak device memory; every route of phase 13 (32
+             steps) captured against eager bit for bit (world hash, image,
+             shadow state, counters, launches), capture seconds and graph
+             pool MiB; a frame that renders a map through the eager
+             programs, its K1 (both modes) and K2 (both layers, A = 48)
+             against their plain versions, exact; the frame through the
+             kernels against the plain versions (1e-5); K2's record
+             (resolve_nonfused: device ms, bound, torch.gather); a profile
+             (host API calls, device rows and time a frame, busy share, the
+             rows that take the most device time); ms a captured frame in
+             turns against a second engine on the fused route; both
+             engines' graph pools.
 Every phase drives the captured Engine. Where a phase holds a kernel
 against its plain version on a frame's own inputs (phases 2, 3, 7, 8, 10),
 that frame runs through ``Eager``, so the kernel wrappers see each call;
@@ -262,6 +283,11 @@ KERNELS = {  # record name -> (launch-count key, source, TPU kernel)
     "fused_shade_tile_lists": ("fused_shade_tile_lists",
                                "render_engine_tpu_torch/csrc/fused_shade.cu",
                                "render_engine_tpu/render/shade_pallas.py:249"),
+    # K2 over every tile of each layer on the JAX package's default route
+    # (phase 16): its launches come from that phase's run
+    "resolve_nonfused": ("resolve_nonfused",
+                         "render_engine_tpu_torch/csrc/resolve.cu",
+                         "render_engine_tpu/render/raster_pallas.py:476"),
 }
 MAIN_PATH = ("tile_raster", "tile_raster_one_pass", "resolve", "fused_shade")
 # phase 11: bands of tile rows, and the image limits of the JAX package's
@@ -2209,6 +2235,7 @@ def phase_golden():
 PROGRAM_FRAMES = 6
 PROGRAM_TURNS = ("graphed", "eager", "eager", "graphed") * 3
 PROFILE_FRAMES = 6
+TOP_ROWS = 8  # device rows by time a profile lists
 SPAWN_AT, SPAWN_DT = 7, 4.5  # a frame long enough to fire the mine spawner
 HOST_LAUNCH_APIS = ("cudaGraphLaunch", "cudaLaunchKernel",
                     "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -2399,12 +2426,22 @@ def frame_profile(eng, frames):
         raise RuntimeError(f"the profiler saw {seen} kernels in {frames} "
                            f"frames, the launch counts say {counted}")
     act = device_activity(prof.events())
+    # the device rows that take the most time, by name: ms and count a
+    # frame
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_ROWS]
     return dict(host_launches=sum(api.values()), host_api=api,
                 device_kernels=act["rows"] / frames,
                 device_ms=act["sum_ms"] / frames,
                 window_ms=window_ms / frames,
                 busy_share=act["busy_ms"] / window_ms,
-                overlap=act["sum_ms"] / act["busy_ms"], kernels_seen=seen)
+                overlap=act["sum_ms"] / act["busy_ms"], kernels_seen=seen,
+                top=[(k[:80], ms / frames, n / frames)
+                     for k, (ms, n) in top])
 
 
 def phase_programs():
@@ -2863,6 +2900,228 @@ def phase_mesh():
     return launches
 
 
+# phase 16: the JAX package's default render route (fused_shading=False)
+# on the headline
+DEFAULT_TURNS = ("fused", "nonfused", "nonfused", "fused") * 2
+PARSE_REPS = 20
+
+
+def native_obj_parse():
+    """The native OBJ parser loaded; the demo station's parse through it
+    equal to the Python parse, and the ms of each (median of PARSE_REPS
+    calls, in turns)."""
+    import numpy as np
+
+    from render_engine_tpu_torch.demo.space_scene import STATION_OBJ
+    from render_engine_tpu_torch.models import obj_loader as OL
+    from render_engine_tpu_torch.native.build import obj_native
+
+    if obj_native() is None:
+        raise RuntimeError("[default-route] the native OBJ parser did not "
+                           "build or load")
+    times = {"native": [], "python": []}
+    out = {}
+    saved = os.environ.get("RE_TPU_NATIVE")
+    try:
+        for _ in range(PARSE_REPS):
+            for which in ("native", "python", "python", "native"):
+                os.environ["RE_TPU_NATIVE"] = "1" if which == "native" \
+                    else "0"
+                t0 = time.perf_counter()
+                out[which] = OL.load_obj(STATION_OBJ)
+                times[which].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        if saved is None:
+            os.environ.pop("RE_TPU_NATIVE", None)
+        else:
+            os.environ["RE_TPU_NATIVE"] = saved
+    same = all(np.array_equal(a, b) for a, b in zip(out["native"][:5],
+                                                    out["python"][:5])) and \
+        [m["name"] for m in out["native"][5]] == \
+        [m["name"] for m in out["python"][5]]
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    log(f"[default-route] native OBJ parser loaded; the station "
+        f"({out['native'][0].shape[0]} vertices, {out['native'][3].shape[0]}"
+        f" triangles) parsed in {ms['native']:.4f} ms native against "
+        f"{ms['python']:.4f} ms in Python (host clock, median of "
+        f"{2 * PARSE_REPS} each); equal: {same}")
+    if not same:
+        raise RuntimeError("[default-route] the native and Python parses of "
+                           "the station differ")
+    return ms
+
+
+def route_engine(fused):
+    """The headline engine on the card, rendering through K3 (``fused``,
+    the demo's setting) or on the JAX package's default route; the
+    setting is the engine's initial one, which ``reset`` keeps."""
+    from render_engine_tpu_torch.demo.space_scene import build_space_engine
+
+    eng = build_space_engine(device="cuda", **SLICE)
+    eng.config.record_history = False
+    if not fused:
+        eng.config.render = dataclasses.replace(eng.config.render,
+                                                fused_shading=False)
+        eng.finalize_scene()
+    return eng
+
+
+def default_counted_run(eng):
+    """WARMUP + TIMED captured frames from the reset state: each launches
+    K1 twice on map frames and once otherwise, K2 twice (every tile of
+    each layer) and no K3; the image finite and lit; the 13 drop counters
+    0. Returns the launches, the median ms and the peak device memory."""
+    import torch
+
+    from render_engine_tpu_torch import kernels
+
+    eng.reset()
+    interval = eng.config.shadow_update_interval
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times = []
+    for i in range(WARMUP + TIMED):
+        before = dict(kernels.LAUNCHES)
+        renders_map = eng.shadow_state.tick % interval == 0
+        t0 = time.perf_counter()
+        img = eng.frame(None, DT)
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+        want = dict(frame_launches(renders_map, resolve=2), fused_shade=0)
+        if launch_delta(before) != want:
+            raise RuntimeError(f"[default-route] frame {i} launched "
+                               f"{launch_delta(before)}, expected {want}")
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    lit = float((img.amax(dim=-1) > 0.05).double().mean())
+    med = statistics.median(times)
+    log(f"[default-route] launches in {WARMUP + TIMED} captured frames: "
+        f"{launches} (K1 twice on map frames, once on the rest; K2 twice a "
+        f"frame; no K3); {TIMED} timed frames: median {med:.2f} ms/frame, "
+        f"min {min(times):.2f}, max {max(times):.2f}; peak device memory "
+        f"{peak / 2**20:.0f} MiB; image max {float(img.max()):.3f}, share "
+        f"of pixels above 0.05: {lit:.4f}")
+    if not (bool(torch.isfinite(img).all()) and float(img.max()) > 0.5
+            and lit > 1e-3):
+        raise RuntimeError("[default-route] the image is not finite or "
+                           "(nearly) blank")
+    missing = [k for k in ("tile_raster", "tile_raster_one_pass", "resolve")
+               if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"[default-route] launched no {missing}")
+    drops = eng.drop_stats()
+    log(f"[default-route] drop counters ({len(drops)}): {drops}")
+    if len(drops) != DROP_KEYS or any(drops.values()):
+        raise RuntimeError(f"expected {DROP_KEYS} drop counters, all 0")
+    return launches, med, peak
+
+
+def hold_default_kernels(eng):
+    """One eager frame of ``eng`` that renders a shadow map, every kernel
+    call's inputs captured: K1 in both modes and K2 over every tile of
+    each layer against their plain versions, exact; no K3. Returns the
+    opaque layer's K2 arguments."""
+    import torch
+
+    from render_engine_tpu_torch.render import raster_pallas as RP
+    from render_engine_tpu_torch.render import shade_pallas as SP
+
+    nt = -(-SLICE["height"] // 8) * -(-SLICE["width"] // 128)
+    interval = eng.config.shadow_update_interval
+    while eng.shadow_state.tick % interval:
+        eng.frame(None, DT)
+    with Eager(eng), Capture(RP, "tile_raster") as k1, \
+            Capture(RP, "resolve_attributes_pallas") as k2, \
+            Capture(SP, "shade_tiles") as k3:
+        eng.frame(None, DT)
+    modes = [kw["two_pass"] for _, kw in k1.calls]
+    tiles = [a[0].shape[0] for a, _ in k2.calls]
+    if modes != [False, True] or tiles != [nt, nt] or k3.calls:
+        raise RuntimeError(f"[default-route] K1 calls with two_pass {modes}, "
+                           f"K2 over {tiles} tiles, {len(k3.calls)} K3 calls")
+    for (a, kw), name in zip(k1.calls, ("K1 one-pass", "K1")):
+        err = check_close(f"default-route {name}", RP.tile_raster(*a, **kw),
+                          RP.tile_raster_reference(*a, **kw), 0.0)
+        log(f"[default-route] {name} on this frame's inputs (data "
+            f"{tuple(a[0].shape)}): max_abs_err {err:.3g} (exact)")
+    for (a, _), layer in zip(k2.calls, ("opaque", "transparent")):
+        err = check_close(f"default-route K2 {layer}",
+                          [RP.resolve_attributes_pallas(*a)],
+                          [RP.resolve_attributes_reference(*a)], 0.0)
+        log(f"[default-route] K2 over every tile of the {layer} layer (slot "
+            f"{tuple(a[0].shape)}, rows {tuple(a[1].shape)}, covered pixels "
+            f"{float((a[0] >= 0).double().mean()):.4f}): max_abs_err "
+            f"{err:.3g} (exact)")
+    torch.cuda.synchronize()
+    return k2.calls[0][0]
+
+
+def phase_default_route():
+    """Phase 16 (module docstring). Returns the K2 record of the route,
+    the launches of its counted run and the run's frame count."""
+    import torch
+
+    from render_engine_tpu_torch import kernel_bounds as KB
+    from render_engine_tpu_torch.render import raster_pallas as RP
+    from render_engine_tpu_torch.runtime.profiling import turn_medians as tm
+
+    parse_ms = native_obj_parse()
+    torch.cuda.empty_cache()
+    eng = route_engine(fused=False)
+    launches, med, peak = default_counted_run(eng)
+    routes = captured_vs_eager("default route (fused_shading=False) "
+                               "1080p/10k, shadows", eng, drive_routes)
+    a2 = hold_default_kernels(eng)
+    frame_through_plain(eng, "default-route", "whole 1080p frame with "
+                        "shadows on the default route")
+    rec = kernel_record(
+        "resolve_nonfused", 0.0,
+        lambda: [RP.resolve_attributes_pallas(*a2)],
+        lambda: [RP.resolve_attributes_reference(*a2)],
+        KB.resolve_work(*a2), k2_gather(*a2))
+    eng.reset()
+    prof = frame_profile(eng, PROFILE_FRAMES)
+    api = ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+        prof["host_api"].items()))
+    log(f"[default-route] profile: {prof['host_launches']:.1f} host API "
+        f"launches a frame ({api}), {prof['device_kernels']:.1f} device "
+        f"rows a frame summing to {prof['device_ms']:.3f} ms; the device "
+        f"busy {prof['busy_share']:.4f} of the traced window of "
+        f"{prof['window_ms']:.3f} ms a frame; K1, K2 and K3 in the trace in "
+        f"{PROFILE_FRAMES} frames: {prof['kernels_seen']}; the rows that "
+        "take the most device time (ms and count a frame): " + "; ".join(
+            f"{k} {ms:.3f} ({n:.0f})" for k, ms, n in prof["top"]))
+    fused = route_engine(fused=True)
+    engines = {"fused": fused, "nonfused": eng}
+    warm = eng.config.shadow_update_interval * eng.config.shadow_slots + 1
+    for e in engines.values():
+        e.reset()
+        for _ in range(warm):  # every frame program captured
+            e.frame(None, DT)
+    mode = {}
+
+    def start(which):
+        mode["which"] = which
+        engines[which].reset()
+
+    turns = tm(lambda: engines[mode["which"]].frame(None, DT), DEFAULT_TURNS,
+               start, frames=TURN_FRAMES, log=log, label="default-route",
+               what="captured headline frame, ")[0]
+    pools = {k: graph_pool_bytes(e) / 2**20 for k, e in engines.items()}
+    log(f"[default-route] graph pools: non-fused {pools['nonfused']:.1f} "
+        f"MiB, fused {pools['fused']:.1f} MiB")
+    out = dict(parse_ms=parse_ms, launches=launches, frames=WARMUP + TIMED,
+               ms_per_frame_counted=med, peak_mib=peak / 2**20,
+               routes=routes, profile=prof, ms_per_frame=turns,
+               pool_mib=pools)
+    log(json.dumps({"default_route": out}))
+    del eng, fused, engines
+    torch.cuda.empty_cache()
+    return rec, launches, WARMUP + TIMED
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace, set before CUDA
     # starts (phase 6 runs with deterministic algorithms)
@@ -2932,10 +3191,15 @@ def main() -> int:
     phase_programs()
     phase_partitioned()
     launches_m = phase_mesh()
-    # the two branch rows take their launches from their own phase's run
-    rec.update(resolve_full_frame=rec_c, fused_shade_tile_lists=rec_l)
+    rec_d, launches_d, frames_d = phase_default_route()
+    # the branch rows take their launches from their own phase's run; the
+    # default route's K2 launches are all over every tile
+    launches_d["resolve_nonfused"] = launches_d["resolve"]
+    rec.update(resolve_full_frame=rec_c, fused_shade_tile_lists=rec_l,
+               resolve_nonfused=rec_d)
     for name, run, n in (("resolve_full_frame", launches_c, frames_c),
-                         ("fused_shade_tile_lists", launches_l, frames_l)):
+                         ("fused_shade_tile_lists", launches_l, frames_l),
+                         ("resolve_nonfused", launches_d, frames_d)):
         launches[name] = run[name]
         per_frame[name] = run[name] / n
         if run[name] == 0:

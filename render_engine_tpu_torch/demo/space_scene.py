@@ -267,6 +267,7 @@ def build_scene(engine: Engine, num_asteroids: int = 40, seed: int = 42,
 
 def space_config(*, capacity: int = 256, num_asteroids: int = 40,
                  width: int = 800, height: int = 600, max_tris: int = 32768,
+                 is_debugging: bool = False,
                  spawn_budget: int = 4, enable_shadows: bool = True,
                  shadow_resolution: int | None = None,
                  shadow_max_tris: int | None = None,
@@ -279,11 +280,14 @@ def space_config(*, capacity: int = 256, num_asteroids: int = 40,
                  collision_large_budget: int | None = None,
                  shadow_lov_bias: int | None = None,
                  trans_tile_budget: int | None = None) -> EngineConfig:
-    """The demo's configuration, with the JAX package's budgets. Shadows
-    are on; their quality follows the target: from 240 px high a 1024^2
-    map, 8192 shadow triangles, an update every 3 frames and 2 slots (the
-    scene's two spot lights); below that (tests) 128^2, 1024 triangles,
-    every frame and 6 slots. Casters take LoV bands 2 coarser."""
+    """The demo's configuration, with the JAX package's budgets, rendered
+    through K3 (``fused_shading=True``, as the JAX demo). Shadows are on;
+    their quality follows the target: from 240 px high a 1024^2 map, 8192
+    shadow triangles, an update every 3 frames and 2 slots (the scene's
+    two spot lights); below that (tests) 128^2, 1024 triangles, every
+    frame and 6 slots. Casters take LoV bands 2 coarser.
+    ``is_debugging`` is the configuration's inert switch (``EngineConfig``).
+    """
     big = height >= 240
 
     def pick(value, large, small):
@@ -296,7 +300,7 @@ def space_config(*, capacity: int = 256, num_asteroids: int = 40,
                                 else collision_large_budget),
         render=RenderSettings(
             width=width, height=height, max_tris=max_tris,
-            max_point_lights=8, max_spot_lights=8,
+            max_point_lights=8, max_spot_lights=8, fused_shading=True,
             light_tile_budget=light_tile_budget or 0,
             shadow_tile_budget=shadow_tile_budget,
             texture_tile_budget=0.04 if big else 0.5,
@@ -310,6 +314,7 @@ def space_config(*, capacity: int = 256, num_asteroids: int = 40,
         spawn_budget=spawn_budget,
         build_scene=lambda e: build_scene(e, num_asteroids=num_asteroids,
                                           normal_maps=normal_maps),
+        is_debugging=is_debugging,
         enable_shadows=enable_shadows,
         shadow_resolution=pick(shadow_resolution, 1024, 128),
         shadow_max_tris=pick(shadow_max_tris, 8192, 1024),

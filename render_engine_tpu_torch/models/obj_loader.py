@@ -1,13 +1,16 @@
 """Wavefront OBJ (+ MTL) loading, host-side numpy.
 
-The pure-Python parser of ``render_engine_tpu/models/obj_loader.py``
-(triangulated faces, per-corner vertex unification, MTL diffuse/specular/
-emissive colors, texture-map names, fan triangulation), copied so the port
-needs no JAX package and no native build.
+Port of ``render_engine_tpu/models/obj_loader.py`` (triangulated faces,
+per-corner vertex unification, MTL diffuse/specular/emissive colors,
+texture-map names, fan triangulation). ``load_obj`` parses through the
+native core first (``native/obj_loader.cpp``, ``_load_obj_native``) and
+through the Python parser, its specification, where the core is off
+(``RE_TPU_NATIVE=0``), did not build, or rejects the file.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -78,6 +81,63 @@ def load_mtl(path: str) -> dict:
     return mats
 
 
+def _load_obj_native(path: str):
+    """``load_obj``'s parse through the C++ core: the same tuple before
+    the normal fill, or None when the library is off or did not build, or
+    the file trips one of the core's guards (a malformed number or an
+    index out of range). Materials replay the Python parser's timing over
+    the returned usemtl / mtllib records: each name resolves, at its first
+    use, against the latest mtllib that existed at that point."""
+    from render_engine_tpu_torch.native.build import obj_native
+
+    lib = obj_native()
+    if lib is None:
+        return None
+    handle = lib.obj_parse(os.fsencode(path))
+    if not handle:
+        return None
+    c = ctypes
+    try:
+        nv, nf = c.c_int64(), c.c_int64()
+        n_names, n_libs = c.c_int32(), c.c_int32()
+        names_len, libs_len = c.c_int64(), c.c_int64()
+        lib.obj_counts(handle, c.byref(nv), c.byref(nf), c.byref(n_names),
+                       c.byref(n_libs), c.byref(names_len),
+                       c.byref(libs_len))
+        v = np.empty((nv.value, 3), np.float32)
+        n = np.empty((nv.value, 3), np.float32)
+        uv = np.empty((nv.value, 2), np.float32)
+        tris = np.empty((nf.value, 3), np.int32)
+        tri_slot = np.empty(nf.value, np.int32)
+        names_buf = c.create_string_buffer(max(names_len.value, 1))
+        libs_buf = c.create_string_buffer(max(libs_len.value, 1))
+        name_lib = np.empty(max(n_names.value, 1), np.int32)
+        fp, ip = c.POINTER(c.c_float), c.POINTER(c.c_int32)
+        lib.obj_copy(handle, v.ctypes.data_as(fp), n.ctypes.data_as(fp),
+                     uv.ctypes.data_as(fp), tris.ctypes.data_as(ip),
+                     tri_slot.ctypes.data_as(ip), names_buf,
+                     name_lib.ctypes.data_as(ip), libs_buf)
+    finally:
+        lib.obj_free(handle)
+
+    def tokens(buf, length):
+        return buf.raw[:length].decode().split("\0")[:-1] if length else []
+
+    # the table in effect after each mtllib record
+    mtl_at, eff = [], {}
+    for tok in tokens(libs_buf, libs_len.value):
+        mpath = os.path.join(os.path.dirname(path), tok)
+        if os.path.exists(mpath):
+            eff = load_mtl(mpath)
+        mtl_at.append(eff)
+    materials = [_default_material("__default__")]
+    for i, name in enumerate(tokens(names_buf, names_len.value)):
+        k = int(name_lib[i])
+        materials.append(_default_material(
+            name, (mtl_at[k] if 0 <= k < len(mtl_at) else {}).get(name, {})))
+    return v, n, uv, tris, tri_slot, materials
+
+
 def _fill_missing_normals(v, n, tris):
     """Area-weighted face-normal fill for corners without a vn record."""
     if len(tris) and (np.linalg.norm(n, axis=1) < 1e-8).any():
@@ -95,7 +155,14 @@ def _fill_missing_normals(v, n, tris):
 
 def load_obj(path: str):
     """Returns ``(vertices, normals, uvs, triangles, tri_material,
-    materials)``; ``materials[0]`` is a default white material."""
+    materials)``; ``materials[0]`` is a default white material. The
+    native core parses when it can (``_load_obj_native``), else the
+    Python parser below."""
+    native = _load_obj_native(path)
+    if native is not None:
+        v, n, uv, tris, tri_mat, materials = native
+        return (v, _fill_missing_normals(v, n, tris), uv, tris, tri_mat,
+                materials)
     positions, normals_raw, uvs_raw = [], [], []
     corner_map: dict = {}
     out_v, out_n, out_uv = [], [], []

@@ -83,7 +83,11 @@ class ShardedPrograms:
     new one after changing them). The state is this object's own: frames
     here do not move ``eng``, which stays usable as the single-device
     reference, and the two share only the packed input buffer, which
-    each fills before each of its replays."""
+    each fills before each of its replays. The bands render through the
+    fused tiled path whatever ``fused_shading`` says (``render_frame_band``),
+    so the frame equals ``Engine.frame`` of an engine with
+    ``fused_shading=True`` (the demo's setting), as the JAX package's dry
+    run compares them (``__graft_entry__.py:142``)."""
 
     def __init__(self, eng, mesh: Mesh):
         if mesh.device.type == "cuda" and \

@@ -44,9 +44,11 @@ def render_frame_band(world, camera, bank, settings: RenderSettings, *,
                       inputs=None) -> torch.Tensor:
     """Rank ``rank``'s band of ``n_ranks``, (band, W, 3) float32 linear
     color: image rows ``[rank * band, (rank + 1) * band)`` of the frame
-    ``render_frame`` gives, the last band's rows past the image padded.
-    ``world`` is the whole world. Requires the fused tiled path, as the
-    JAX package does."""
+    ``render_frame`` gives with ``fused_shading=True``, the last band's
+    rows past the image padded.
+    ``world`` is the whole world. A band renders through the fused tiled
+    path (``tiled_fused_core``) whatever ``fused_shading`` says, as the
+    JAX package's ``render_frame_band``; ``backend="jnp"`` is refused."""
     from render_engine_tpu_torch.render import render_system as RS
 
     if settings.backend == "jnp":

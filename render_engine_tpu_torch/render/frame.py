@@ -2,9 +2,11 @@
 
 Port of ``render_engine_tpu/render/frame.py``. ``render_frame`` first runs
 the render systems' draw callbacks (instance gate, this frame's uniform
-rows, skybox toggle), then takes one of three paths:
+rows, skybox toggle), then takes one of three paths, as the JAX package's
+``render_frame`` routes them:
 
-* the fused tiled path (``backend="auto"``, on every device):
+* the fused tiled path (a tiled backend, ``"auto"`` or ``"pallas"``, with
+  ``fused_shading=True`` and no ``shadow_factor``):
   ``tiled_fused_core`` runs binning, the packed candidate rows, K1 (tile
   raster, two layers), K2 (resolve of the texture-budgeted tiles) with the
   texture override, the per-slot PCF factor tiles of the shadow maps, the
@@ -12,11 +14,12 @@ rows, skybox toggle), then takes one of three paths:
   for systems with a fragment-shading function, ``_fused_custom_shading``
   per layer (K2 over every tile, the G-buffer from its channels, the user
   function on its system's pixels), and the compose over the background;
-* the non-fused tiled path (``backend="auto"`` given a custom
-  ``shadow_factor``, which cannot run inside K3's light loop):
-  ``_render_frame_tiled`` runs K1 and K2 over every tile of both layers
-  (``raster_pallas.gbuffers_tall``), the atlas, ``lighting.shade`` per
-  layer and the compose;
+* the non-fused tiled path (every other call on a tiled backend: the
+  default ``fused_shading=False``, or a custom ``shadow_factor``, which
+  cannot run inside K3's light loop): ``_render_frame_tiled`` runs K1 and
+  K2 over every tile of both layers (``raster_pallas.gbuffers_tall``), the
+  atlas, the shadow maps' PCF factor (``shadows.make_shadow_factor``),
+  ``lighting.shade`` per layer and the compose;
 * the golden path (``backend="jnp"``): the image-layout raster and G-buffer
   resolve of ``raster_jnp.py`` and ``lighting.shade`` per layer, with the
   same systems semantics.
@@ -48,7 +51,9 @@ from render_engine_tpu_torch.render.textures import (sample_atlas,
                                                      sample_atlas_rows)
 from render_engine_tpu_torch.utils import consts
 
-BACKENDS = ("auto", "jnp")
+# "auto" and "pallas": the tiled path through the kernels (their plain
+# versions on CPU tensors); "jnp": the golden image-layout path
+BACKENDS = ("auto", "pallas", "jnp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,9 +66,11 @@ class RenderSettings:
     max_point_lights: int = 64
     max_spot_lights: int = 16
     clear_color: tuple = (0.0, 0.0, 0.0)
-    # "auto": the fused tiled path (K1, K2, K3) on every device; "jnp":
-    # the golden image-layout path
+    # one of BACKENDS
     backend: str = "auto"
+    # the tiled path's shading: K3 (True) or K2 over every tile and
+    # lighting.shade (False, the JAX package's default)
+    fused_shading: bool = False
     # atlas sampling of the transparent layer (each layer costs a resolve)
     texture_transparent: bool = False
     # fractions of screen tiles whose PCF factors (per shadow slot, among
@@ -100,7 +107,7 @@ def render_frame(world, camera, bank, settings: RenderSettings, *,
     the lights that own its slots (opaque layer). ``shadow_factor``: a
     custom callback (kind, index, world_pos) -> factor in its place; it
     cannot run inside K3's light loop, so the frame takes the non-fused
-    tiled path.
+    tiled path whatever ``fused_shading`` says.
     ``systems``: ``render_system.CompiledSystems``, folded into the pass as
     per-triangle data, with their draw and shading callbacks. ``inputs``:
     the frame's ``InputState`` (tensors), which draw callbacks read."""
@@ -117,9 +124,10 @@ def render_frame(world, camera, bank, settings: RenderSettings, *,
                                     atlas=atlas, shadow_state=shadow_state,
                                     shadow_factor=shadow_factor,
                                     systems=systems)
-    if shadow_factor is not None:
+    if not settings.fused_shading or shadow_factor is not None:
         return _render_frame_tiled(world, camera, bank, settings, **f,
-                                   atlas=atlas, shadow_factor=shadow_factor,
+                                   atlas=atlas, shadow_state=shadow_state,
+                                   shadow_factor=shadow_factor,
                                    systems=systems)
     tri_sys = None
     if systems is not None and systems.has_shade_callbacks():
@@ -259,12 +267,15 @@ def _render_frame_golden(world, camera, bank, settings, *, batch, lights,
 
 
 def _render_frame_tiled(world, camera, bank, settings, *, batch, lights,
-                        background, ent_attrs, atlas, shadow_factor,
-                        systems, draw_ctx) -> torch.Tensor:
+                        background, ent_attrs, atlas, shadow_state,
+                        shadow_factor, systems, draw_ctx) -> torch.Tensor:
     """The non-fused tiled path: the G-buffers and shading planes of both
     layers in the tall tile layout (``raster_pallas.gbuffers_tall``), the
     atlas, ``lighting.shade`` per layer (``shadow_factor`` on the opaque
-    one), custom shading, then one untile of what the compose needs."""
+    one: the callback given, else the PCF factor of ``shadow_state``'s
+    maps), custom shading, then one untile of what the compose needs. The
+    tile budgets of the fused path (shadow, texture, light lists) do not
+    apply: every tile is shaded, textured and shadowed."""
     from render_engine_tpu_torch.render import render_system as RS
 
     cfg = settings.raster
@@ -277,6 +288,11 @@ def _render_frame_tiled(world, camera, bank, settings, *, batch, lights,
     if atlas is not None:
         gbuf = _texture_gbuffer(gbuf, extras, atlas, bank, batch)
         t_gbuf = _texture_gbuffer(t_gbuf, t_extras, atlas, bank, batch)
+    if shadow_factor is None and shadow_state is not None:
+        shadow_factor = SHD.make_shadow_factor(
+            shadow_state, world,
+            {"dir": lights.dir_entity, "spot": lights.sp_entity,
+             "point": lights.pt_entity})
     zeros = torch.zeros(gbuf.position.shape, device=batch.xy.device)
 
     def shade(g, ex, factor):

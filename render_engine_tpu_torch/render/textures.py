@@ -209,6 +209,8 @@ def load_image(path: str) -> np.ndarray:
         data = f.read()
     if data[:2] == b"P6":
         return _load_ppm(data)
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return _load_png(data)
     raise ValueError(f"unsupported image format: {path}")
 
 
@@ -229,3 +231,58 @@ def _load_ppm(data: bytes) -> np.ndarray:
     idx += 1
     w, h, _maxv = parts
     return np.frombuffer(data, np.uint8, w * h * 3, idx).reshape(h, w, 3)
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    if abs(p - a) <= min(abs(p - b), abs(p - c)):
+        return a
+    return b if abs(p - b) <= abs(p - c) else c
+
+
+def _load_png(data: bytes) -> np.ndarray:
+    """An 8-bit RGB or RGBA PNG (not interlaced) as (H, W, 3) uint8: the
+    IDAT stream inflated with zlib and each row's filter undone (0 none,
+    1 sub, 2 up, 3 average, 4 Paeth); alpha is dropped."""
+    import struct
+    import zlib
+
+    pos = 8
+    idat = b""
+    w = h = None
+    color_type = None
+    while pos < len(data):
+        ln = struct.unpack(">I", data[pos:pos + 4])[0]
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + ln]
+        if tag == b"IHDR":
+            w, h, bit_depth, color_type = struct.unpack(">IIBB", body[:10])
+            if bit_depth != 8 or color_type not in (2, 6):
+                raise ValueError("only 8-bit RGB/RGBA PNGs supported")
+        elif tag == b"IDAT":
+            idat += body
+        elif tag == b"IEND":
+            break
+        pos += 12 + ln
+    ch = 3 if color_type == 2 else 4
+    raw = zlib.decompress(idat)
+    stride = w * ch
+    out = np.zeros((h, stride), np.uint8)
+    prev = [0] * stride
+    for y in range(h):
+        ft = raw[y * (stride + 1)]
+        line = list(raw[y * (stride + 1) + 1:(y + 1) * (stride + 1)])
+        for x in range(stride):
+            a = line[x - ch] if x >= ch else 0
+            if ft == 1:
+                line[x] = (line[x] + a) & 0xFF
+            elif ft == 2:
+                line[x] = (line[x] + prev[x]) & 0xFF
+            elif ft == 3:
+                line[x] = (line[x] + ((a + prev[x]) >> 1)) & 0xFF
+            elif ft == 4:
+                c = prev[x - ch] if x >= ch else 0
+                line[x] = (line[x] + _paeth(a, prev[x], c)) & 0xFF
+        out[y] = line
+        prev = line
+    return out.reshape(h, w, ch)[..., :3]

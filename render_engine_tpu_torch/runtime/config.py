@@ -32,6 +32,9 @@ class EngineConfig:
     collision_large_budget: int = 32
     build_scene: Optional[Callable] = None  # build_scene(engine) -> None
     lov_fractions: Optional[Sequence[float]] = None
+    # the reference's debugging switch, kept for its callers; no code
+    # reads it (recording is record_history)
+    is_debugging: bool = False
     # history recording: every frame's inputs after a baseline snapshot,
     # flushed to history_dir (runtime/history.py)
     history_dir: str = "debug_logs"

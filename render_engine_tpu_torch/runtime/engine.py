@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import time
 
 import numpy as np
@@ -208,7 +209,12 @@ def capture_program(fn, state: ProgramState, pool,
     that waits for the device raising). The kernel launches the capture
     counted are the program's; warm-up and capture add none to
     ``kernels.LAUNCHES``. ``error_mode`` is ``torch.cuda.graph``'s
-    ``capture_error_mode``."""
+    ``capture_error_mode``.
+
+    A graph destroyed while another is being captured invalidates that
+    capture, and a dropped engine's graphs are freed by the garbage
+    collector (its programs' closures refer to the engine). So the
+    collector runs before the capture and is off during it."""
     t0 = time.perf_counter()
     device = state.camv.device
     counted = dict(kernels.LAUNCHES)
@@ -223,9 +229,17 @@ def capture_program(fn, state: ProgramState, pool,
     graph = torch.cuda.CUDAGraph()
     keep: list = []
     mark = dict(kernels.LAUNCHES)
-    with torch.cuda.graph(graph, pool=pool, capture_error_mode=error_mode):
-        with _sync_errors(), consts.holding(keep):
-            fn(state)
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode=error_mode):
+            with _sync_errors(), consts.holding(keep):
+                fn(state)
+    finally:
+        if collecting:
+            gc.enable()
     launches = {k: n - mark.get(k, 0)
                 for k, n in kernels.LAUNCHES.items()
                 if n != mark.get(k, 0)}
@@ -570,7 +584,10 @@ class Engine:
         a camera vector, the maps as they are), ``_render_shadowed`` (after
         a step: the shadow update, then the render), ``_update_shadow``
         (the update alone) and ``_frame_fused`` (step, update and render).
-        Allocates the static image at the settings' size."""
+        They render through ``render_frame``, on the route the settings
+        pick: K3 with ``fused_shading=True``, else K2 over every tile and
+        ``lighting.shade`` (the JAX package's default). Allocates the
+        static image at the settings' size."""
         bank, settings = self.bank, self.config.render
         cubemap, atlas, systems = self.cubemap, self.atlas, \
             self.compiled_systems
@@ -868,8 +885,10 @@ class Engine:
         shadow overflow of the current state, by re-running the frame's
         geometry and binning (and, with shadows, the next update's shadow
         batch and binning and the main raster for the per-slot PCF
-        budget). The texture-tile and light-list budgets exist on the fused
-        tiled path only, so ``backend="jnp"`` reports neither. A diagnostic
+        budget). The texture-tile and light-list counters are reported on
+        the tiled backends whichever shading they take, as the JAX package
+        reports them (only the fused route applies those budgets), and not
+        on ``backend="jnp"``. A diagnostic
         off the frame's path: it launches K1 once with shadows and reads
         the counters back once."""
         if self.bank is None:

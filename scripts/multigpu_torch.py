@@ -39,7 +39,10 @@ card's captured ``Engine.frame``, eager N cards, twice each) with the
 programs' capture seconds and graph pool MiB, as a record.
 
 On cards the engine has the headline's size (1920x1080, 10,000 asteroids);
-on the CPU the dry run's toy size. Both runs render with texture and
+on the CPU the dry run's toy size. The demo engine renders with
+``fused_shading=True``, the setting under which ``Engine.frame`` and the
+bands (fused whatever the setting) take the same route, as the JAX dry
+run sets it. Both runs render with texture and
 shadow tile budgets of 1.0: a band's budgets are fractions of its own
 tiles, so at the demo's 0.04 and 0.28 a band may leave tiles untextured or
 unshadowed that the whole frame covers. The gloo group meets in a

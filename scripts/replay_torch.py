@@ -104,7 +104,8 @@ def make_features_engine(device):
                       EntityType("ball", 1, collision=bounce)),
         collision_budget=16, collision_pairs=4,
         render=RenderSettings(
-            width=128, height=64, max_tris=2048, light_tile_budget=8,
+            width=128, height=64, max_tris=2048, fused_shading=True,
+            light_tile_budget=8,
             max_point_lights=N_LIGHTS, texture_tile_budget=1.0,
             raster=RasterConfig(tile_budget=32, max_tiles_per_tri=16,
                                 global_budget=16)),

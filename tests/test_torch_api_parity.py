@@ -201,7 +201,8 @@ def test_orthographic_frame_matches(half_extent):
                            backend="pallas", fused_shading=True,
                            raster=RCJ(chunk=4, **RASTER), max_point_lights=4)
     st = FT.RenderSettings(width=WIDTH, height=H, max_tris=256,
-                           raster=RCT(**RASTER), max_point_lights=4)
+                           fused_shading=True, raster=RCT(**RASTER),
+                           max_point_lights=4)
     img_j = np.asarray(FJ.render_frame(wj, cj, bj, sj))
     img_t = FT.render_frame(wt, ct, bt, st)
     persp = FT.render_frame(wt, dataclasses.replace(

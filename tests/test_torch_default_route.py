@@ -1,0 +1,286 @@
+"""The JAX package's default render route, ``RenderSettings(fused_shading=
+False)``, in the port: the non-fused tiled frame (K1, K2 over every tile of
+both layers, ``lighting.shade``) taken by ``render_frame`` without a
+callback, its shadows from the shadow maps (``shadows.make_shadow_factor``),
+and the Engine's programs on that route.
+
+* Frames against the JAX package's ``backend="pallas",
+  fused_shading=False`` frame (interpret mode, its shadow raster patched to
+  the Pallas path as tests/test_torch_nonfused.py does): the frame scene of
+  tests/test_torch_frame.py, its "featured" variant (every texture role),
+  the point light's shadow maps of tests/test_torch_shadow_frame.py, and
+  the textured scene 200 pixels wide (a partial last tile column).
+  Tolerance: max abs diff <= 2/255 and at most 0.1% of the u8 values
+  differing, as the fused frame is held.
+* The default route with a ``shadow_state`` ``torch.equal`` to the frame
+  with the callback the golden path builds from it (the route before this
+  setting existed); ``backend="pallas"`` ``torch.equal`` to ``"auto"`` on
+  both routes; an unknown backend raises.
+* A 128x32 demo engine (10 asteroids, 128^2 shadow maps, an update every
+  3 frames over 2 slots, one frame of 4.5 s that fires the mine spawner)
+  with ``fused_shading=False``, 4 frames against the JAX Engine with the
+  same configuration: integer columns, the shadow schedule and every drop
+  counter exact; float columns rtol 1e-5 / atol 1e-4 (tests/
+  test_torch_programs.py's limits); images at the 2/255 limit. Its program
+  functions run under ``host_traffic.no_host_traffic`` (the CPU's stand-in
+  for a CUDA graph's capture); a recorded session replays bit for bit;
+  toggling ``fused_shading`` drops the programs that render.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from render_engine_tpu.demo import space_scene as JS
+from render_engine_tpu.logic.types import InputState as JInput
+from render_engine_tpu.math.camera import CameraBuilder as JCameraBuilder
+from render_engine_tpu.render import frame as FJ
+from render_engine_tpu.render import raster_pallas as RPJ
+from render_engine_tpu.runtime.engine import Engine as JEngine
+from render_engine_tpu_torch.demo import space_scene as TS
+from render_engine_tpu_torch.logic.types import InputState as TInput
+from render_engine_tpu_torch.render import frame as FT
+from render_engine_tpu_torch.render import raster_pallas as RPT
+from render_engine_tpu_torch.render import shade_pallas as SPT
+from render_engine_tpu_torch.runtime.config import EngineConfig
+from render_engine_tpu_torch.runtime.history import HistoryLog
+from render_engine_tpu_torch.runtime.replay import Player
+from render_engine_tpu_torch.utils.hashing import world_hash
+
+import test_torch_partial_tiles as TPT
+from host_traffic import no_host_traffic
+from test_torch_frame import JAX_PK, TORCH_PK, build
+from test_torch_nonfused import pallas_shadows, shadowed  # noqa: F401
+from test_torch_nonfused import (assert_images_close, scene, settings,
+                                 shadows_of)
+from test_torch_programs import SMALL, _columns, _inputs, _kept
+from test_torch_shadows import assert_state_close
+from torch_threads import one_torch_thread  # noqa: F401
+
+SCENES = ["plain", "featured"]
+# frames 0 and 3 render maps into slots 0 and 1, 1 and 2 skip; frame 2
+# fires the mine spawner
+DTS = (1 / 60, 1 / 30, 4.5, 1 / 60)
+
+
+def default(st, **kw):
+    """The port's settings on the default route."""
+    return dataclasses.replace(st, fused_shading=False, **kw)
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    """The resolves' tile counts of each frame rendered; K3 refused."""
+    resolved = []
+    real = RPT.resolve_attributes_pallas
+
+    def spy(slot, rows, cfg=None):
+        resolved.append(slot.shape[0])
+        return real(slot, rows)
+
+    def no_k3(*a, **kw):
+        raise AssertionError("K3 ran on the default route")
+
+    monkeypatch.setattr(RPT, "resolve_attributes_pallas", spy)
+    monkeypatch.setattr(SPT, "shade_tiles", no_k3)
+    return resolved
+
+
+def test_default_settings_are_the_reference_default():
+    assert FT.RenderSettings().fused_shading is FJ.RenderSettings(
+    ).fused_shading is False
+    assert "pallas" in FT.BACKENDS
+    assert FT.RenderSettings(fused_shading=True) != FT.RenderSettings()
+    assert hash(FT.RenderSettings(fused_shading=True)) != hash(
+        FT.RenderSettings())
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_default_frame_matches_reference(name, counted):
+    wj, bj, cj, aj = scene(JAX_PK, name)
+    wt, bt, ct, at = scene(TORCH_PK, name)
+    sj, st = settings()
+    img_t = FT.render_frame(wt, ct, bt, default(st), atlas=at)
+    nt = -(-st.width // st.raster.tile_w) * -(-st.height // st.raster.tile_h)
+    assert counted == [nt, nt]
+    assert_images_close(img_t, FJ.render_frame(wj, cj, bj, sj, atlas=aj))
+    assert float(img_t.max()) > 0.9
+
+
+def test_shadowed_default_frame_matches_reference(shadowed, counted):
+    wt, bt, ct, sht = shadowed["t"]
+    wj, bj, cj, shj = shadowed["j"]
+    sj, st = settings()
+    img_t = FT.render_frame(wt, ct, bt, default(st), shadow_state=sht)
+    assert len(counted) == 2
+    assert_images_close(img_t, FJ.render_frame(wj, cj, bj, sj,
+                                               shadow_state=shj))
+    # the maps shade the frame
+    assert not torch.equal(img_t, FT.render_frame(wt, ct, bt, default(st)))
+
+
+def test_default_frame_on_a_partial_tile():
+    width, height = 200, 48
+    wj, bj, cj, aj = build(JAX_PK, True)
+    wt, bt, ct, at = build(TORCH_PK, True)
+    cj = TPT.with_aspect(cj, width, height)
+    ct = TPT.with_aspect(ct, width, height)
+    sj, st = TPT.settings(width, height)
+    sj = dataclasses.replace(sj, fused_shading=False)
+    img_j = np.asarray(FJ.render_frame(wj, cj, bj, sj, atlas=aj))
+    img_t = FT.render_frame(wt, ct, bt, default(st), atlas=at)
+    TPT.assert_images_close(img_t, img_j, width, height)
+    assert (img_t[:, 128:] > 0.05).any()
+
+
+def test_default_frame_equals_the_callback_route(shadowed):
+    """The factor built inside the frame is the golden path's callback:
+    the frame equals the one rendered with that callback, to the bit."""
+    w, bank, cam, sh = shadowed["t"]
+    _, st = settings()
+    s = default(st)
+    got = FT.render_frame(w, cam, bank, s, shadow_state=sh)
+    assert torch.equal(got, FT.render_frame(
+        w, cam, bank, s, shadow_factor=shadows_of(sh, w, s)))
+    # a callback given wins over the maps, as in the JAX package
+    assert torch.equal(
+        FT.render_frame(w, cam, bank, s, shadow_state=sh,
+                        shadow_factor=lambda kind, i, pos: 1.0),
+        FT.render_frame(w, cam, bank, s,
+                        shadow_factor=lambda kind, i, pos: 1.0))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_pallas_backend_is_auto(shadowed, fused):
+    w, bank, cam, sh = shadowed["t"]
+    _, st = settings()
+    s = dataclasses.replace(st, fused_shading=fused)
+    a = FT.render_frame(w, cam, bank, s, shadow_state=sh)
+    b = FT.render_frame(w, cam, bank, dataclasses.replace(s,
+                                                          backend="pallas"),
+                        shadow_state=sh)
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="none of"):
+        FT.render_frame(w, cam, bank, dataclasses.replace(s, backend="tpu"))
+
+
+# ------------------------------------------------------------ the Engine
+def _jax_engine(kw):
+    cfg = JS.space_config(**kw)
+    cfg.record_history = False
+    cfg.render = dataclasses.replace(cfg.render, backend="pallas",
+                                     fused_shading=False)
+    cam = (JCameraBuilder().with_position(1000.0, 1000.0, 1150.0)
+           .with_yaw_pitch_degrees(-90.0, 0.0).with_fov_degrees(60.0)
+           .with_aspect(kw["width"] / kw["height"])
+           .with_near_far(0.5, 1500.0).with_draw_distance(1500.0).build())
+    return JEngine(cfg, camera=cam)
+
+
+def _port_engine(**kw):
+    eng = TS.build_space_engine(device="cpu", **SMALL, **kw)
+    eng.config.render = default(eng.config.render)
+    return eng
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """Both engines on the default route through the frames of DTS."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(FJ, "pick_rasterizer",
+               lambda backend="auto": RPJ.rasterize_depth_winner_pallas)
+    try:
+        jeng = _jax_engine(SMALL)
+        teng = _port_engine()
+        teng.config.record_history = False
+        out = []
+        for i, dt in enumerate(DTS):
+            jimg = np.asarray(jeng.frame(_inputs(JInput, i), dt))
+            timg = teng.frame(_inputs(TInput, i), dt).numpy()
+            out.append(dict(
+                jimg=jimg, timg=timg,
+                jw=_columns(jeng.world, True), tw=_columns(teng.world),
+                jdrops=jeng.drop_stats(), tdrops=teng.drop_stats(),
+                jsh=jax.tree_util.tree_map(np.asarray, jeng.shadow_state),
+                tsh=teng.shadow_state))
+    finally:
+        mp.undo()
+    return dict(frames=out, programs=teng.captured_programs)
+
+
+@pytest.mark.parametrize("frame", range(len(DTS)))
+def test_engine_frames_match_reference(engines, frame):
+    r = engines["frames"][frame]
+    for name, want in r["jw"].items():
+        got = r["tw"][name]
+        if np.issubdtype(want.dtype, np.floating):
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=name)
+    assert r["tdrops"] == r["jdrops"]
+    assert_state_close(r["tsh"], r["jsh"])
+    assert r["timg"].shape == (SMALL["height"], SMALL["width"], 3)
+    assert_images_close(torch.from_numpy(r["timg"]), r["jimg"])
+
+
+def test_engine_passes_every_schedule_variant(engines):
+    assert {("frame", "skip"), ("frame", 0), ("frame", 1)} <= \
+        engines["programs"]
+    # the mine spawned by the 4.5 s frame
+    assert engines["frames"][2]["tw"]["alive"].sum() == \
+        engines["frames"][1]["tw"]["alive"].sum() + 1
+
+
+@pytest.mark.parametrize("key", [("frame", 1), ("frame", "skip"),
+                                 ("render_shadowed", 0), ("step",)])
+def test_engine_programs_without_host_traffic(key, counted):
+    eng = _port_engine()
+    eng.config.record_history = False
+    eng.frame(_inputs(TInput, 0), 1 / 60)
+    eng.render()
+    counted.clear()
+    fn = eng.program_function(key)
+    fn(eng._state)
+    with no_host_traffic():
+        fn(eng._state)
+    assert len(counted) == (0 if key[0] == "step" else 4)
+    assert bool(torch.isfinite(eng._state.image).all())
+
+
+def test_engine_records_and_replays_bit_for_bit(tmp_path):
+    eng = _port_engine(is_debugging=True)
+    assert eng.config.is_debugging and EngineConfig(
+        is_debugging=True).is_debugging
+    eng.config.history_dir = str(tmp_path)
+    eng.reset()
+    live = []
+    for i in range(5):
+        img = eng.frame(_inputs(TInput, i), 1 / 60 if i == 4 else DTS[i],
+                        render=i != 3, advance="step" if i == 1 else None)
+        live.append((world_hash(eng.world), img))
+    eng.flush_history()
+    eng2 = _port_engine()
+    eng2.config.record_history = False
+    player = Player(eng2, HistoryLog.load(str(tmp_path)))
+    for i, (h, img) in enumerate(live):
+        got, _ = player.step(render=i != 3)
+        assert world_hash(eng2.world) == h
+        assert (got is None) == (img is None)
+        assert img is None or torch.equal(got, img)
+
+
+def test_toggling_fused_shading_drops_the_render_programs():
+    eng = _port_engine()
+    eng.config.record_history = False
+    eng.frame(_inputs(TInput, 0), 1 / 60)
+    eng.frame(_inputs(TInput, 1), 1 / 60, advance="step")
+    eng.render()
+    before = eng.captured_programs
+    assert {("step",), ("frame", 0), ("render_shadowed", "skip")} <= before
+    eng.config.render = dataclasses.replace(eng.config.render,
+                                            fused_shading=True)
+    assert eng.captured_programs == _kept(before, "render")

@@ -121,7 +121,8 @@ def test_render_frame_matches_reference(textured, tex_budget):
                            raster=RCJ(chunk=4, **RASTER), max_point_lights=4,
                            texture_tile_budget=tex_budget)
     st = FT.RenderSettings(width=WIDTH, height=H, max_tris=256,
-                           raster=RCT(**RASTER), max_point_lights=4,
+                           fused_shading=True, raster=RCT(**RASTER),
+                           max_point_lights=4,
                            texture_tile_budget=tex_budget)
     img_j = np.asarray(FJ.render_frame(wj, cj, bj, sj, cubemap=stars_j,
                                        atlas=aj))

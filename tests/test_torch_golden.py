@@ -318,7 +318,7 @@ def _settings(pk, backend, **kw):
             raster=RJJ.RasterConfig(chunk=4, **RASTER), max_point_lights=4,
             **kw)
     return FT.RenderSettings(width=WIDTH, height=H, max_tris=256,
-                             backend=backend,
+                             backend=backend, fused_shading=True,
                              raster=RJT.RasterConfig(**RASTER),
                              max_point_lights=4, **kw)
 

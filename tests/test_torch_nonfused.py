@@ -114,13 +114,15 @@ def scene(pk, name):
 
 
 def settings(**kw):
-    """JAX's non-fused settings and the port's tiled ones."""
+    """JAX's non-fused settings and the port's fused ones (a
+    ``shadow_factor`` takes them to the non-fused path)."""
     sj = FJ.RenderSettings(width=WIDTH, height=H, max_tris=256,
                            backend="pallas", fused_shading=False,
                            raster=RCJ(chunk=4, **RASTER), max_point_lights=4,
                            **kw)
     st = FT.RenderSettings(width=WIDTH, height=H, max_tris=256,
-                           raster=RCT(**RASTER), max_point_lights=4, **kw)
+                           fused_shading=True, raster=RCT(**RASTER),
+                           max_point_lights=4, **kw)
     return sj, st
 
 

@@ -50,7 +50,8 @@ def settings(width, height, **kw):
                            raster=RCJ(chunk=4, **RASTER), max_point_lights=4,
                            **kw)
     st = FT.RenderSettings(width=width, height=height, max_tris=256,
-                           raster=RCT(**RASTER), max_point_lights=4, **kw)
+                           fused_shading=True, raster=RCT(**RASTER),
+                           max_point_lights=4, **kw)
     return sj, st
 
 

@@ -92,7 +92,8 @@ def glass_scene(pk=TORCH_PK):
 
 def settings(backend="auto", **kw):
     return FT.RenderSettings(width=WIDTH, height=H, max_tris=64,
-                             backend=backend, raster=RCT(**RASTER), **kw)
+                             backend=backend, fused_shading=True,
+                             raster=RCT(**RASTER), **kw)
 
 
 def jax_settings(backend):

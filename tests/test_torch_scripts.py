@@ -57,8 +57,10 @@ def test_smoke_space(tmp_path, capsys, monkeypatch):
 
 def jax_smoke_frame():
     """``scripts/smoke_render.py``'s scene and frame in the JAX package,
-    through its Pallas route (``backend="pallas", fused_shading=True``;
-    on a CPU its ``"auto"`` takes the jnp golden raster)."""
+    through its Pallas route with the script's default shading
+    (``backend="pallas", fused_shading=False``, as ``smoke_render.py``
+    renders on a TPU; on a CPU its ``"auto"`` takes the jnp golden
+    raster)."""
     bb = MBJ()
     red = bb.add_material(albedo=(0.8, 0.2, 0.2))
     blue = bb.add_material(albedo=(0.2, 0.3, 0.9))
@@ -94,7 +96,7 @@ def jax_smoke_frame():
            .with_aspect(320.0 / 240.0).with_near_far(0.1, 200.0)
            .with_draw_distance(200.0).build())
     settings = FJ.RenderSettings(width=320, height=240, max_tris=4096,
-                                 backend="pallas", fused_shading=True)
+                                 backend="pallas", fused_shading=False)
     return np.asarray(FJ.to_srgb_u8(FJ.render_frame(
         w, cam, bank, settings, cubemap=SBJ.starfield_cubemap(64))))
 

@@ -165,7 +165,8 @@ def _settings_pair(**kw):
                            raster=RCJ(chunk=4, **RASTER), max_point_lights=4,
                            **kw)
     st = FT.RenderSettings(width=WIDTH, height=H, max_tris=256,
-                           raster=RCT(**RASTER), max_point_lights=4, **kw)
+                           fused_shading=True, raster=RCT(**RASTER),
+                           max_point_lights=4, **kw)
     return sj, st
 
 

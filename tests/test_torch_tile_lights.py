@@ -177,13 +177,12 @@ def test_select_tile_lights_rows_shifted_band():
 
 
 def settings(pk_frame, pk_raster, **kw):
-    extra = dict(backend="pallas", fused_shading=True) \
-        if pk_frame is FJ else {}
+    extra = dict(backend="pallas") if pk_frame is FJ else {}
     raster = pk_raster(chunk=4, **RASTER) if pk_frame is FJ \
         else pk_raster(**RASTER)
     return pk_frame.RenderSettings(width=WIDTH, height=H, max_tris=256,
                                    raster=raster, max_point_lights=48,
-                                   **extra, **kw)
+                                   fused_shading=True, **extra, **kw)
 
 
 def test_tile_light_lists_bit_identical_in_the_port():
