@@ -220,6 +220,7 @@ scripts/shadow_routes_jax.py holds against the JAX package's two routes.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import os
@@ -1779,15 +1780,15 @@ def engine_state(eng):
     sh = eng.shadow_state
     return (eng.world.clone(), eng.camera, sh and sh.clone(),
             eng.frame_index, eng._prev_keys.copy(), eng.history,
-            len(eng._frame_times))
+            copy.deepcopy(eng._frame_calls))
 
 
 def restore_state(eng, state):
-    w, cam, sh, index, prev, history, n_times = state
+    w, cam, sh, index, prev, history, calls = state
     eng.world, eng.camera, eng.shadow_state = w.clone(), cam, sh and sh.clone()
     eng.frame_index, eng._prev_keys = index, prev.copy()
     eng.history = history
-    del eng._frame_times[n_times:]
+    eng._frame_calls = copy.deepcopy(calls)
 
 
 def band_agreement(img, ref):

@@ -15,6 +15,12 @@ Per-frame values arrive as tensors: the seed as a 0-dim int64 tensor and
 ``dt`` as a 0-dim float32 tensor (``InputState.unpack_with_dt`` of the
 packed wire), so the tick reads nothing back from the device and uploads
 nothing, and runs inside a captured frame program as it runs eagerly.
+
+Its four stages are spans of a traced program (``profiling.mark``):
+``step.kinematics`` (active mask, user input, integration, out-of-bounds,
+refresh), ``step.collisions`` (grid, ``find_collisions``, pair callbacks),
+``step.logic`` (per-type logic) and ``step.changes`` (the ChangeSet, the
+second refresh, the camera).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from render_engine_tpu_torch.logic import collision as COL
 from render_engine_tpu_torch.logic import kinematics as K
 from render_engine_tpu_torch.logic import random as RND
 from render_engine_tpu_torch.logic.types import EntityType, InputState
+from render_engine_tpu_torch.runtime import profiling as P
 from render_engine_tpu_torch.utils.indexing import gather_row, whole
 from render_engine_tpu_torch.world import culling
 from render_engine_tpu_torch.world import grid as G
@@ -82,6 +89,7 @@ def make_step(types: Sequence[EntityType], *, logic_radius=None,
 
     def step(world: World, camera, inputs: InputState, dt: torch.Tensor,
              model_aabb_min, model_aabb_max):
+        P.mark("step.kinematics")
         dev = world.device
         rng = RND.key(inputs.rng_seed)
 
@@ -111,6 +119,7 @@ def make_step(types: Sequence[EntityType], *, logic_radius=None,
         world = K.refresh_transforms(world, model_aabb_min, model_aabb_max,
                                      moved | rotated)
 
+        P.mark("step.collisions")
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         stats = {
             "collision_query_dropped": zero,
@@ -150,6 +159,7 @@ def make_step(types: Sequence[EntityType], *, logic_radius=None,
                         kw = {"other_type": otypes[:, j]} if wants else {}
                         cs = fn(world, others[:, j], tmask, *sub, cs, **kw)
 
+        P.mark("step.logic")
         for t in types:
             tmask = active & world.of_type(t.index)
             if t.logic is not None:
@@ -158,6 +168,7 @@ def make_step(types: Sequence[EntityType], *, logic_radius=None,
                 rng, sub = RND.split(rng)
                 cs = t.random_logic(world, dt, tmask, sub, cs)
 
+        P.mark("step.changes")
         cs = C.with_despawn(cs, kill_oob)
         logic_dirty = torch.zeros(world.capacity, dtype=torch.bool,
                                   device=dev)

@@ -38,6 +38,10 @@ graph holds collectives. The decision comes from host integers that every
 rank advances alike, so the ranks agree by construction; the first use of
 each program checks it with one ``all_gather_object`` of its key.
 
+The Engine's tracing (``Engine.set_tracing``) has no counterpart here: these
+captures arm no marks, so the marks in the shared step, shadow and render
+functions (``runtime/profiling.py``) return at once.
+
 What a program may depend on is what the Engine's may (its module
 docstring): per-frame values reach it only through the packed input
 vector and the camera vector. DTensor's host-side sharding propagation

@@ -23,6 +23,15 @@ rows, skybox toggle), then takes one of three paths, as the JAX package's
 * the golden path (``backend="jnp"``): the image-layout raster and G-buffer
   resolve of ``raster_jnp.py`` and ``lighting.shade`` per layer, with the
   same systems semantics.
+
+In a traced program (``profiling.mark``) a frame's stages are spans:
+``render.geometry`` (``frame_inputs``), ``render.raster`` (binning, the
+candidate rows, K1), ``render.resolve`` (K2 with the texture override),
+``render.shade`` (the PCF factor tiles, light lists, K3 and custom
+shading; on the non-fused path the atlas, the shadow factor and
+``lighting.shade``) and ``render.compose``; and the frame keeps two of its
+counters, ``triangle_budget_dropped`` and ``tile_candidate_dropped``
+(``profiling.count``).
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from render_engine_tpu_torch.render.shade_pallas import (fused_shade,
                                                          select_tile_lights)
 from render_engine_tpu_torch.render.textures import (sample_atlas,
                                                      sample_atlas_rows)
+from render_engine_tpu_torch.runtime import profiling as P
 from render_engine_tpu_torch.utils import consts
 
 # "auto" and "pallas": the tiled path through the kernels (their plain
@@ -117,8 +127,11 @@ def render_frame(world, camera, bank, settings: RenderSettings, *,
         raise ValueError(f"backend {settings.backend!r} is none of "
                          f"{BACKENDS}")
     h, w = settings.height, settings.width
+    P.mark("render.geometry")
     f = frame_inputs(world, camera, bank, settings, cubemap=cubemap,
                      systems=systems, inputs=inputs)
+    P.count("triangle_budget_dropped", f["batch"].total_requested,
+            settings.max_tris)
     if settings.backend == "jnp":
         return _render_frame_golden(world, camera, bank, settings, **f,
                                     atlas=atlas, shadow_state=shadow_state,
@@ -179,6 +192,7 @@ def _render_frame_golden(world, camera, bank, settings, *, batch, lights,
     from render_engine_tpu_torch.render import render_system as RS
 
     h, w = settings.height, settings.width
+    P.mark("render.raster")
     depth, winner = rasterize_depth_winner(batch, h, w, settings.raster,
                                            ~batch.transparent)
     t_depth, t_winner = rasterize_depth_winner(batch, h, w, settings.raster,
@@ -237,6 +251,7 @@ def _render_frame_golden(world, camera, bank, settings, *, batch, lights,
             t_em_img = t_em_img * t_emis_mul
         t_alpha = (material(t_gbuf, bank.mat_alpha) * t_asc).clamp(0.0, 1.0)
 
+    P.mark("render.shade")
     if shadow_factor is None and shadow_state is not None:
         shadow_factor = SHD.make_shadow_factor(
             shadow_state, world,
@@ -255,6 +270,7 @@ def _render_frame_golden(world, camera, bank, settings, *, batch, lights,
         t_lit = RS.apply_custom_shading(t_lit, t_gbuf, t_winner, batch,
                                         world, camera, lights, systems,
                                         draw_ctx)
+    P.mark("render.compose")
     if t_alpha is None:
         t_alpha = material(t_gbuf, bank.mat_alpha)
     alpha = t_alpha[..., None]
@@ -282,9 +298,11 @@ def _render_frame_tiled(world, camera, bank, settings, *, batch, lights,
     h, w = settings.height, settings.width
     th, twd = cfg.tile_h, cfg.tile_w
     tiles_x, tiles_y = -(-w // twd), -(-h // th)
+    P.mark("render.raster")
     gbuf, extras, t_gbuf, t_extras = RP.gbuffers_tall(
         batch, bank, h, w, cfg, T.inv44(camera.proj_view()),
         ent_attrs=ent_attrs)
+    P.mark("render.shade")
     if atlas is not None:
         gbuf = _texture_gbuffer(gbuf, extras, atlas, bank, batch)
         t_gbuf = _texture_gbuffer(t_gbuf, t_extras, atlas, bank, batch)
@@ -311,6 +329,7 @@ def _render_frame_tiled(world, camera, bank, settings, *, batch, lights,
         t_lit = RS.apply_custom_shading(t_lit, t_gbuf, t_gbuf.tri_id, batch,
                                         world, camera, lights, systems,
                                         draw_ctx)
+    P.mark("render.compose")
     t_front = t_gbuf.covered() & (t_gbuf.depth <= gbuf.depth)
     flags = gbuf.covered().to(torch.float32) + 2.0 * t_front.to(
         torch.float32)
@@ -623,9 +642,12 @@ def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
     tiles_x, tiles_y = -(-width // twd), -(-h_local // th)
     dev = batch.xy.device
 
+    P.mark("render.raster")
     tri_class = RP._tri_class(batch)
-    cand, counts = RP._candidate_table(batch, cfg, tiles_x, tiles_y,
-                                       tri_class)
+    cand, counts, *dropped = RP._candidate_table(
+        batch, cfg, tiles_x, tiles_y, tri_class, with_dropped=P.armed())
+    if dropped:
+        P.count("tile_candidate_dropped", dropped[0])
     packed = RP._packed_tri_table(batch, bank, tri_class,
                                   ent_attrs=ent_attrs, atlas=atlas)
     rows = RP._gather_candidate_rows(packed, cand)  # (NT, K, A)
@@ -633,6 +655,7 @@ def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
                                        two_pass=True, cand=cand,
                                        counts=counts)
 
+    P.mark("render.resolve")
     albedo_override = None
     if atlas is not None:
         ntt = s.shape[0]
@@ -676,6 +699,7 @@ def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
             ovr_t = torch.zeros_like(ovr_o)
         albedo_override = torch.cat([ovr_o, ovr_t]).contiguous()
 
+    P.mark("render.shade")
     inv_pv = T.inv44(camera.proj_view())
     sft = sfi = sent = None
     if shadow_state is not None:
@@ -717,6 +741,7 @@ def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
                       textured=settings.texture_transparent
                       or (atlas is not None and bank.has_dissolve_maps()))
 
+    P.mark("render.compose")
     img = shaded.reshape(8, tiles_y, tiles_x, th, twd).permute(
         1, 3, 2, 4, 0).reshape(tiles_y * th, tiles_x * twd, 8)[
         :h_local, :width]

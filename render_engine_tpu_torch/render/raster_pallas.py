@@ -38,6 +38,7 @@ from render_engine_tpu_torch.render.geometry import (TriangleBatch,
                                                      triangle_tangents)
 from render_engine_tpu_torch.render.raster_jnp import (RasterConfig,
                                                        _bin_triangles)
+from render_engine_tpu_torch.runtime import profiling as P
 
 # packed per-candidate attribute channels (A axis), as in the JAX package:
 #   0:10 x0 y0 x1 y1 x2 y2 z0 z1 z2 cls | 10:19 normals | 19:25 uvs |
@@ -581,7 +582,11 @@ def gbuffers_tall(batch: TriangleBatch, bank, height: int, width: int,
     tiles_x, tiles_y = -(-width // tw), -(-height // th)
     nt = tiles_x * tiles_y
     tri_class = _tri_class(batch)
-    cand, counts = _candidate_table(batch, cfg, tiles_x, tiles_y, tri_class)
+    cand, counts, *dropped = _candidate_table(batch, cfg, tiles_x, tiles_y,
+                                              tri_class,
+                                              with_dropped=P.armed())
+    if dropped:  # a traced program keeps the count
+        P.count("tile_candidate_dropped", dropped[0])
     rows = _gather_candidate_rows(
         _packed_tri_table(batch, bank, tri_class, ent_attrs=ent_attrs), cand)
     d, w, s, td, twi, ts = _launch(batch, height, width, cfg, tri_class,

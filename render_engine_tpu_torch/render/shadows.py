@@ -40,6 +40,7 @@ from render_engine_tpu_torch.render.geometry import (build_triangle_batch,
 from render_engine_tpu_torch.render.raster_jnp import RasterConfig
 from render_engine_tpu_torch.render.raster_pallas import (
     rasterize_depth_winner_pallas)
+from render_engine_tpu_torch.runtime import profiling as P
 from render_engine_tpu_torch.utils.consts import const
 from render_engine_tpu_torch.utils.indexing import gather_row
 from render_engine_tpu_torch.world import culling
@@ -286,6 +287,7 @@ def _render_shadow_map_now(shadow: ShadowState, world, camera, bank, *,
                            raster_cfg: RasterConfig | None = None,
                            lov_bias: int = 0,
                            caster_mask=None) -> ShadowState:
+    P.mark("shadows.geometry")
     cfg = raster_cfg or shadow_raster_cfg(max_tris)
     res = shadow.resolution
     shadow, slot, light, face, do_render = choose_light(shadow, world,
@@ -294,6 +296,7 @@ def _render_shadow_map_now(shadow: ShadowState, world, camera, bank, *,
     batch = to_screen(shadow_batch(world, camera, bank, pv,
                                    max_tris=max_tris, lov_bias=lov_bias,
                                    caster_mask=caster_mask), res, res)
+    P.mark("shadows.raster")
     depth, _ = rasterize_depth_winner_pallas(batch, res, res, cfg)
 
     sel = (torch.arange(shadow.slots, device=depth.device) == slot) \

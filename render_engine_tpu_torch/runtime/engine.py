@@ -8,7 +8,9 @@ stepped state with the updated maps), ``step``, ``update_shadows``,
 ``run_frames_rendered``, the recorded config events
 (``set_draw_distances``, ``set_window``), history recording with
 ``flush_history`` (runtime/history.py; replayed by runtime/replay.py),
-``drop_stats`` with ``render_drop_stats``, and ``fps_stats``.
+``drop_stats`` with ``render_drop_stats``, and ``fps_stats``; and, with
+``set_tracing(True)``, spans inside the captured programs and around the
+calls (``trace_report``, ``export_spans``; ``runtime/profiling.py``).
 
 The programs. The JAX package compiles the step (``_step``), the render
 (``_render``, ``_render_shadowed``) and the whole frame (``_frame_fused``:
@@ -43,8 +45,22 @@ configuration (``finalize_scene``, ``set_window``, ``set_draw_distances``)
 drops every program; a new render configuration (``set_skybox``,
 ``set_atlas``, ``set_render_systems``, a changed ``config.render`` or
 ``compiled_systems``) drops the programs that render. ``reset`` keeps them
-all unless the settings it restores differ. ``captured_programs`` lists
-the keys of the programs held.
+all unless the settings it restores differ. ``set_tracing`` drops them all
+(the marks are part of a graph), and the next calls capture them again.
+``captured_programs`` lists the keys of the programs held.
+
+Tracing. With ``set_tracing(True)`` the programs are captured with their
+marks (``profiling.mark``: the spans ``step`` and its four stages,
+``shadows``, ``render`` and its stages, ``store``, inside the frame
+program's ``frame``) and two counters, and every call records host spans
+(``engine.frame`` or the call's name; inside it ``engine.trace``,
+``engine.record``, ``engine.feed``, ``engine.shadow_decision``,
+``engine.launch`` for each replay, tagged with the program's key, and
+``engine.clone``), an anchor event where its input copy starts and a tail
+event after its last work. ``trace_report`` synchronizes once and returns
+the calls held and the counters. With tracing off (the default) the
+programs are the same graphs without the marks, and a call records only
+its start and end (``fps_stats``).
 """
 
 from __future__ import annotations
@@ -78,6 +94,7 @@ from render_engine_tpu_torch.render.frame import (RenderSettings,
 from render_engine_tpu_torch.render.geometry import (build_triangle_batch,
                                                      to_screen)
 from render_engine_tpu_torch.render.raster_jnp import _bin_triangles
+from render_engine_tpu_torch.runtime import profiling as P
 from render_engine_tpu_torch.runtime.config import EngineConfig
 from render_engine_tpu_torch.runtime.history import HistoryLog
 from render_engine_tpu_torch.utils import consts
@@ -91,6 +108,7 @@ _WRITES = {"step": ("world", "camera"),
            "frame": ("world", "camera", "shadow"),
            "render_shadowed": ("shadow",), "shadows": ("shadow",),
            "render": ()}
+_OFF = contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -188,11 +206,15 @@ class _Program:
     """One program: ``run`` replays its graph (or, on the CPU, runs its
     function); ``launches`` are the kernel launches its capture counted,
     added to ``kernels.LAUNCHES`` on every replay; ``keep`` holds the
-    cached constants its graph reads."""
+    cached constants its graph reads; ``marks`` its spans and counters
+    (``profiling.ProgramMarks``; None with tracing off)."""
 
-    def __init__(self, run, launches: dict, keep: list, seconds: float):
+    def __init__(self, run, launches: dict, keep: list, seconds: float,
+                 marks: P.ProgramMarks | None = None):
         self.run, self.launches, self.keep = run, launches, keep
-        self.seconds = seconds
+        self.seconds, self.marks = seconds, marks
+        # a traced graph's second capture, replayed in turn with this one
+        self.twin: _Program | None = None
 
     def __call__(self):
         self.run()
@@ -201,7 +223,8 @@ class _Program:
 
 
 def capture_program(fn, state: ProgramState, pool,
-                    error_mode: str = "global") -> _Program:
+                    error_mode: str = "global",
+                    marks: P.ProgramMarks | None = None) -> _Program:
     """``fn(state)`` captured as a CUDA graph over ``state``'s buffers in
     the graph pool ``pool``, after two warm-up runs on a side stream over a
     copy of the state (the first builds the kernels and uploads the cached
@@ -209,7 +232,8 @@ def capture_program(fn, state: ProgramState, pool,
     that waits for the device raising). The kernel launches the capture
     counted are the program's; warm-up and capture add none to
     ``kernels.LAUNCHES``. ``error_mode`` is ``torch.cuda.graph``'s
-    ``capture_error_mode``.
+    ``capture_error_mode``. ``marks``: the program's marks, recorded into
+    the graph as timing events (the warm-up runs record none).
 
     A graph destroyed while another is being captured invalidates that
     capture, and a dropped engine's graphs are freed by the garbage
@@ -235,7 +259,7 @@ def capture_program(fn, state: ProgramState, pool,
     try:
         with torch.cuda.graph(graph, pool=pool,
                               capture_error_mode=error_mode):
-            with _sync_errors(), consts.holding(keep):
+            with _sync_errors(), consts.holding(keep), P.recording(marks):
                 fn(state)
     finally:
         if collecting:
@@ -245,7 +269,8 @@ def capture_program(fn, state: ProgramState, pool,
                 if n != mark.get(k, 0)}
     # warm-up and capture run nothing of the frame
     kernels.LAUNCHES.update(counted)
-    return _Program(graph.replay, launches, keep, time.perf_counter() - t0)
+    return _Program(graph.replay, launches, keep, time.perf_counter() - t0,
+                    marks)
 
 
 def shadow_schedule(tick: int, cursor: int, interval: int, slots: int):
@@ -323,7 +348,10 @@ class Engine:
         self.frame_index = 0
         self._prev_keys = np.zeros(NUM_KEYS, bool)
         self._last_drops = None
-        self._frame_times: list[float] = []
+        # the host start and end of the last frames (fps_stats)
+        self._frame_calls = P.CallRing()
+        self._tracing = False
+        self._trace: P.FrameTracer | None = None
         if config.build_scene is not None:
             config.build_scene(self)
         self.finalize_scene()
@@ -481,7 +509,7 @@ class Engine:
         self._start_history()
         self.frame_index = 0
         self._prev_keys = np.zeros(NUM_KEYS, bool)
-        self._frame_times = []
+        self._frame_calls = P.CallRing()
         self._last_drops = None
 
     # -- mid-run config changes, recorded and replayed before the frame
@@ -523,7 +551,8 @@ class Engine:
         c = self.config
         st = self._state
         step = (self._step_fn, self.bank, _camera_meta(self._cam_template),
-                st.world, torch.are_deterministic_algorithms_enabled())
+                st.world, torch.are_deterministic_algorithms_enabled(),
+                self._tracing)
         render = step + (c.render, self.cubemap, self.atlas,
                          self.compiled_systems, c.render_systems,
                          c.shadow_max_tris, c.shadow_lov_bias,
@@ -564,6 +593,7 @@ class Engine:
         step, bank, cam0 = self._step_fn, self.bank, self._cam_template
 
         def advance(st):
+            P.mark("step")
             camera = cam0.apply_serialized(st.camv)
             inputs, dt = InputState.unpack_with_dt(st.packed)
             world, camera, stats = step(st.world, camera, inputs, dt,
@@ -572,9 +602,11 @@ class Engine:
 
         def step_only(st):
             world, camera, _, drops = advance(st)
+            P.mark("store")
             _store_world(st.world, world)
             _store(st.camv, camera.serialize())
             _store(st.drops, drops)
+            P.end()
 
         self._advance = advance
         self._step = step_only
@@ -610,40 +642,52 @@ class Engine:
                 lov_bias=cfg.shadow_lov_bias,
                 caster_mask=cfg.shadow_caster_mask)
 
-        def draw(st, world, camera, sh, inputs):
-            st.image.copy_(render_frame(
+        def draw(world, camera, sh, inputs):
+            P.mark("render")
+            return render_frame(
                 world, camera, bank, settings, cubemap=cubemap, atlas=atlas,
-                shadow_state=sh, systems=systems, inputs=inputs))
+                shadow_state=sh, systems=systems, inputs=inputs)
 
         def render_view(st, meta, with_inputs):
             camera = dataclasses.replace(cam0, **dict(meta))
             inputs = (InputState.unpack_with_dt(st.packed)[0]
                       if with_inputs else None)
-            draw(st, st.world, camera.apply_serialized(st.view),
-                 update(st, "skip", None, None), inputs)
+            img = draw(st.world, camera.apply_serialized(st.view),
+                       update(st, "skip", None, None), inputs)
+            P.mark("store")
+            st.image.copy_(img)
+            P.end()
 
         def render_shadowed(st, variant):
             camera = cam0.apply_serialized(st.camv)
+            P.mark("shadows")
             sh = update(st, variant, st.world, camera)
-            draw(st, st.world, camera, sh,
-                 InputState.unpack_with_dt(st.packed)[0])
+            img = draw(st.world, camera, sh,
+                       InputState.unpack_with_dt(st.packed)[0])
+            P.mark("store")
+            st.image.copy_(img)
             _store_shadow(st, sh)
+            P.end()
 
         def update_shadow(st, variant):
-            _store_shadow(st, update(st, variant, st.world,
-                                     cam0.apply_serialized(st.camv)))
+            P.mark("shadows")
+            sh = update(st, variant, st.world, cam0.apply_serialized(st.camv))
+            P.mark("store")
+            _store_shadow(st, sh)
+            P.end()
 
         def frame_fused(st, variant):
             world, camera, inputs, drops = advance(st)
+            P.mark("shadows")
             sh = update(st, variant, world, camera)
-            img = render_frame(world, camera, bank, settings, cubemap=cubemap,
-                               atlas=atlas, shadow_state=sh, systems=systems,
-                               inputs=inputs)
+            img = draw(world, camera, sh, inputs)
+            P.mark("store")
             _store_world(st.world, world)
             _store(st.camv, camera.serialize())
             _store(st.drops, drops)
             _store_shadow(st, sh)
             st.image.copy_(img)
+            P.end()
 
         self._shadow_update = update
         self._render = render_view
@@ -669,17 +713,34 @@ class Engine:
         constants; the second, like the capture, runs with every operation
         that waits for the device raising)."""
         fn = self.program_function(key)
+        # the frame program's marks lie inside a span over all of them
+        marks = (P.ProgramMarks(self.device.type == "cuda",
+                                "frame" if key[0] == "frame" else None)
+                 if self._tracing else None)
         if self.device.type != "cuda":
-            return _Program(lambda: fn(self._state), {}, [], 0.0)
-        with torch.cuda.device(self.device):
-            return self._capture_graph(fn)
+            if marks is None:
+                return _Program(lambda: fn(self._state), {}, [], 0.0)
 
-    def _capture_graph(self, fn) -> _Program:
+            def run():
+                with marks.recording():
+                    fn(self._state)
+            return _Program(run, {}, [], 0.0, marks)
         if not self._programs:
             # a private pool lives while a graph uses it: the programs
             # share one, and a new one follows the last program dropped
             self._pool = torch.cuda.graph_pool_handle()
-        return capture_program(fn, self._state, self._pool)
+        with torch.cuda.device(self.device):
+            prog = capture_program(fn, self._state, self._pool, marks=marks)
+            if marks is not None:
+                # traced: a second graph with events of its own, replayed
+                # in turn with the first, so that a call's events are read
+                # while the next call runs (profiling.FrameTracer)
+                twin = capture_program(
+                    fn, self._state, self._pool,
+                    marks=P.ProgramMarks(True, marks.root))
+                prog.twin, twin.twin = twin, prog
+                prog.seconds = twin.seconds = prog.seconds + twin.seconds
+        return prog
 
     def _program(self, key: tuple):
         """The program ``key``, captured at its first use."""
@@ -690,7 +751,18 @@ class Engine:
         return prog
 
     def _replay(self, key: tuple):
-        self._program(key)()
+        prog = self._program(key)
+        tr = self._trace if self._tracing else None
+        if tr is None:
+            prog()
+        else:
+            if prog.twin is not None:
+                prog = self._programs[key] = prog.twin
+            tr.before_replay(prog.marks)
+            with tr.host("engine.launch", key):
+                tr.anchor()
+                prog()
+            tr.replayed(key, prog.marks)
         for name in _WRITES[key[0]]:
             self._views.pop(name, None)
 
@@ -702,11 +774,16 @@ class Engine:
         """This frame's packed inputs into the static buffer: on a card one
         non-blocking copy from a pinned buffer of a small ring (a buffer is
         written again only after its last copy ran)."""
+        tr = self._trace if self._tracing else None
+        if tr is not None:
+            tr.anchor()
         if not self._stage:
             self._packed_host[:] = packed
             return
         self._stage_at = (self._stage_at + 1) % len(self._stage)
         buf, copied = self._stage[self._stage_at]
+        if tr is not None and not copied.query():
+            tr.feed_waits += 1  # the engine's only wait for the device
         copied.synchronize()
         buf.numpy()[:] = packed
         self._state.packed.copy_(buf, non_blocking=True)
@@ -726,21 +803,90 @@ class Engine:
             self._state.shadow[2].shape[0])
         return decision
 
+    # -- tracing -------------------------------------------------------------
+    def set_tracing(self, on: bool):
+        """Spans inside the programs and around the calls, off by default
+        (module docstring). Switching drops every program; the next calls
+        capture them again, with their marks or without. Switching on
+        starts a new record; switching off keeps the last one for
+        ``trace_report``."""
+        on = bool(on)
+        if on == self._tracing:
+            return
+        self._tracing = on
+        if on:
+            self._trace = P.FrameTracer(self.device)
+        self._refresh_programs()
+
+    def _call(self, kind: str, t0: int | None = None):
+        """A block that is one traced call ``kind`` (host span, anchor,
+        tail) and yields the tracer; with tracing off, nothing and None."""
+        return self._trace.call(kind, t0) if self._tracing else _OFF
+
+    def trace_report(self) -> dict:
+        """Synchronizes once and returns what tracing recorded: ``frames``,
+        every call the ring holds (``profiling.call_dict``: host spans with
+        their parents and self times; device spans with their parents,
+        programs and self times; the launch, busy, gap and cycle times and
+        the idle put down to host spans), and ``counters``: the calls, those
+        not read back (``unread``), the input copies that waited for the
+        device (``feed_waits``), the kernel launches, the programs held
+        (``captures``, ``capture_s``), the step's six drop counters as the
+        last step left them (``step_drops``) and the render's
+        ``triangle_budget_dropped`` and ``tile_candidate_dropped`` as the
+        last traced program that renders left them (``render_drops``, read
+        from the graph: no geometry runs again)."""
+        tr = self._trace
+        if tr is None:
+            return {"frames": [], "counters": {}}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        tr.poll()
+        counters = {
+            "frames": tr.calls, "unread": tr.unread,
+            "feed_waits": tr.feed_waits,
+            "launches": dict(kernels.LAUNCHES),
+            "captures": len(self._programs),
+            "capture_s": float(sum(self.capture_seconds().values())),
+            "step_drops": unpack_drop_stats(self._state.drops),
+            "render_drops": self._render_counters()}
+        return {"frames": tr.frames(), "counters": counters}
+
+    def _render_counters(self) -> dict:
+        """The counters of the last traced call that ran a program, from its
+        last program that keeps any (the render's), read from its graph;
+        {} where it has none."""
+        last = self._trace and self._trace.last
+        for _, marks, *_ in reversed(last.programs if last else []):
+            if marks.counts:
+                return marks.counters()
+        return {}
+
+    def export_spans(self, path: str) -> dict:
+        """``trace_report()`` written to ``path`` as JSON lines (the
+        counters, then one line a call); returns the report."""
+        report = self.trace_report()
+        P.export_lines(path, report)
+        return report
+
     # -- frame loop ----------------------------------------------------------
     def step(self, inputs: InputState, dt: float):
         """Advance the world one tick (no render). ``inputs``: host inputs
         with their ``prev_keys`` as the caller sets them."""
-        self._feed(inputs.pack_with_dt(dt))
-        self._replay(("step",))
+        with self._call("engine.step") as tr:
+            with tr.host("engine.feed") if tr else _OFF:
+                self._feed(inputs.pack_with_dt(dt))
+            self._replay(("step",))
         self._last_drops = self._state.drops
 
     def update_shadows(self):
         """One shadow-map update of the current state (the interval gate
         and the round-robin schedule run on the host; a skipped update
         launches nothing)."""
-        decision = self._shadow_decision()
-        if isinstance(decision, int):
-            self._replay(("shadows", decision))
+        with self._call("engine.update_shadows"):
+            decision = self._shadow_decision()
+            if isinstance(decision, int):
+                self._replay(("shadows", decision))
 
     def render(self, camera=None, inputs: InputState | None = None
                ) -> torch.Tensor:
@@ -749,46 +895,67 @@ class Engine:
         (H, W, 3) float32 linear color. ``inputs``: the frame's inputs
         (host or tensor form), for the render systems' draw callbacks."""
         st = self._state
-        if camera is None:
-            camera = self._cam_template
-            st.view.copy_(st.camv)
-        else:
-            st.view.copy_(camera.serialize())
-        if inputs is not None:
-            self._feed(_packed(inputs))
-        self._replay(("render", _camera_meta(camera), inputs is not None))
-        return st.image.clone()
+        with self._call("engine.render") as tr:
+            if tr is not None:
+                tr.anchor()
+            if camera is None:
+                camera = self._cam_template
+                st.view.copy_(st.camv)
+            else:
+                st.view.copy_(camera.serialize())
+            if inputs is not None:
+                self._feed(_packed(inputs))
+            self._replay(("render", _camera_meta(camera), inputs is not None))
+            with tr.host("engine.clone") if tr else _OFF:
+                return st.image.clone()
 
     # the JAX package's name (detached-camera replay views)
     render_only = render
 
-    def _advance_frame(self, inputs, dt, render, advance):
-        """One frame's programs; the image stays in the static buffer."""
-        inputs = inputs if inputs is not None else InputState.idle(
-            seed=self.frame_index)
+    def _advance_frame(self, inputs, dt, render, advance, clone=False):
+        """One frame's programs; the image stays in the static buffer, and
+        with ``clone`` a copy of it is returned (else None)."""
         if advance not in (None, "fused", "step"):
             raise ValueError(f"advance must be None, 'fused' or 'step', "
                              f"not {advance!r}")
+        t0 = time.perf_counter_ns()
+        with self._call("engine.frame", t0) as tr:
+            image = self._frame_programs(tr, inputs, dt, render, advance,
+                                         clone)
+        self._frame_calls.add(t0, time.perf_counter_ns())
+        return image
+
+    def _frame_programs(self, tr, inputs, dt, render, advance, clone):
+        inputs = inputs if inputs is not None else InputState.idle(
+            seed=self.frame_index)
         fused = advance == "fused" or (advance is None and bool(render))
-        if self.config.record_history:
-            self.history.record_frame(inputs, dt, fused=fused)
-        # last frame's keys ride along as prev_keys: derived from the
-        # stream, so replay rebuilds them
-        inputs = inputs.with_prev(self._prev_keys)
-        self._prev_keys = np.asarray(inputs.keys, bool)
-        t0 = time.perf_counter()
+        with tr.host("engine.record") if tr else _OFF:
+            if self.config.record_history:
+                self.history.record_frame(inputs, dt, fused=fused)
+            # last frame's keys ride along as prev_keys: derived from the
+            # stream, so replay rebuilds them
+            inputs = inputs.with_prev(self._prev_keys)
+            self._prev_keys = np.asarray(inputs.keys, bool)
         # one transfer: the step and the draw callbacks read the same
         # packed vector, live and in a replay
-        self._feed(inputs.pack_with_dt(dt))
+        with tr.host("engine.feed") if tr else _OFF:
+            self._feed(inputs.pack_with_dt(dt))
         if fused:
-            self._replay(("frame", self._shadow_decision()))
+            with tr.host("engine.shadow_decision") if tr else _OFF:
+                decision = self._shadow_decision()
+            self._replay(("frame", decision))
         else:
             self._replay(("step",))
             if render:
-                self._replay(("render_shadowed", self._shadow_decision()))
+                with tr.host("engine.shadow_decision") if tr else _OFF:
+                    decision = self._shadow_decision()
+                self._replay(("render_shadowed", decision))
         self._last_drops = self._state.drops
         self.frame_index += 1
-        self._frame_times.append(time.perf_counter() - t0)
+        if not clone:
+            return None
+        with tr.host("engine.clone") if tr else _OFF:
+            return self._state.image.clone()
 
     def frame(self, inputs: InputState | None = None, dt: float = 1.0 / 60.0,
               render: bool = True, advance: str | None = None):
@@ -803,10 +970,10 @@ class Engine:
         exactly when rendering. It is recorded with the frame's raw inputs
         so that logs replay in either package through the same programs.
 
-        The image is not waited for; the frame time recorded is the host's
-        dispatch time unless the caller synchronizes."""
-        self._advance_frame(inputs, dt, render, advance)
-        return self._state.image.clone() if render else None
+        The image is not waited for (``fps_stats``: the intervals between
+        calls are what the caller's loop achieves)."""
+        return self._advance_frame(inputs, dt, render, advance,
+                                   clone=bool(render))
 
     def _burst(self, inputs_list, dts, renders, advance):
         if len(inputs_list) != len(dts):
@@ -862,22 +1029,42 @@ class Engine:
 
     # -- stats ---------------------------------------------------------------
     def fps_stats(self) -> dict:
-        if not self._frame_times:
+        """The rate the caller's loop achieves over the last frames
+        (``profiling.RING``): ``mean_ms`` and ``p50_ms`` of the intervals
+        from one frame's call to the next (the first left out: it holds
+        the captures), ``fps`` their mean's inverse, ``dispatch_ms`` the
+        mean host time from a call to its return (the device's work is
+        not waited for), ``frames`` since the last ``reset`` and
+        ``drops``; {} before the first frame."""
+        t = self._frame_calls.times()
+        if not len(t):
             return {}
-        ts = np.asarray(self._frame_times[1:] or self._frame_times)
-        return {"frames": len(self._frame_times),
-                "mean_ms": float(ts.mean() * 1e3),
-                "p50_ms": float(np.percentile(ts, 50) * 1e3),
-                "fps": float(1.0 / max(ts.mean(), 1e-9)),
-                "drops": self.drop_stats()}
+        out = {"frames": self._frame_calls.n,
+               "dispatch_ms": float((t[:, 1] - t[:, 0]).mean() / 1e6)}
+        iv = np.diff(t[:, 0]) / 1e6
+        iv = iv[1:] if len(iv) > 1 else iv
+        if len(iv):
+            out.update(mean_ms=float(iv.mean()),
+                       p50_ms=float(np.median(iv)),
+                       fps=float(1e3 / max(iv.mean(), 1e-9)))
+        out["drops"] = self.drop_stats()
+        return out
 
     def drop_stats(self) -> dict:
-        """Budget-overflow counters: the last step's (read back here) and
-        the render's for the current state (``render_drop_stats``)."""
+        """Budget-overflow counters. The step's six are the step program's
+        own (``ProgramState.drops``, written by the graph, read back
+        here). The render's are ``render_drop_stats``, which runs the
+        frame's geometry and binning again for the current state; with
+        tracing on and a last call that rendered, ``triangle_budget_dropped``
+        and ``tile_candidate_dropped`` come instead from its program (the
+        graph keeps both, ``trace_report``'s ``render_drops``), and the
+        re-run gives the others."""
         out = {}
         if self._last_drops is not None:
             out.update(unpack_drop_stats(self._last_drops))
         out.update(self.render_drop_stats())
+        if self._tracing:
+            out.update(self._render_counters())
         return out
 
     def render_drop_stats(self) -> dict:

@@ -1,86 +1,473 @@
-"""Per-stage frame profiling.
+"""Spans inside the Engine's captured programs and around its calls, and
+the measuring tools the benchmarks share.
 
-Port of ``render_engine_tpu/runtime/profiling.py``:
+Port of ``render_engine_tpu/runtime/profiling.py``'s ``trace()``: a
+``torch.profiler`` wrapper for deep dives (writes a Chrome trace under
+``log_dir``). The JAX package's ``StageTimer`` (host clocks around stages,
+a synchronize after each) has no counterpart: a frame here is one captured
+graph, so the stages are timed inside it.
 
-  * ``StageTimer``: EWMA per-stage host timings (alpha 0.6 over 5 frames),
-    the frame-time HUD.
-  * ``trace()``: a ``torch.profiler`` wrapper for deep dives (writes a
-    Chrome trace under ``log_dir``).
+Spans (``Engine.set_tracing``). The program functions call ``mark(name)``
+at their boundaries, ``end()`` after their last one and ``count(name,
+value)`` on counters they compute anyway. All three return at once unless
+a program is being recorded: the Engine arms a ``ProgramMarks``
+(``recording``) while it captures a program with tracing on, and on the
+CPU while it runs one. On a card each mark is then a timing event recorded
+on the capture stream (``torch.cuda.Event(enable_timing=True,
+external=True)``), an event-record node of the graph, so every replay
+times its marks on the device; on the CPU it is ``time.perf_counter_ns()``.
+A mark opens the span ``name`` and ends every open span that is not an
+ancestor of it by its dotted name (``render.shade`` lies inside
+``render``), so a span ends where the next one of its level starts and a
+boundary costs one event; ``end()`` ends them all.
 
-and adds what the benchmarks share: ``require_device`` / ``device_info``
-(a measurement names the card it ran on, and fails where there is none),
+``FrameTracer`` holds what the Engine's calls record with tracing on: host
+spans (``time.perf_counter_ns()``; ``torch.profiler.record_function`` rows
+too while a profiler runs); an anchor event on the stream where the call's
+input copy starts and a tail event after its last work, outside the
+graphs; and each replayed program's marks. A call is read back once its
+tail has completed (``poll``, at the end of the next call, while the
+device runs that one: no synchronize) into a ring of the last ``RING``
+calls; a call whose program is replayed again before that (its events
+would be overwritten) is counted ``unread``. On a card the Engine captures
+each traced program twice and replays the two in turn, so the next call's
+replay leaves the last call's events alone. On one device clock a call then reads: the previous tail to
+the anchor, the device idle while the host was between calls; the anchor
+to the first mark, the input copy and the graph's start; the marks, the
+layers; the last mark to the tail, the image clone. ``CallRing`` keeps the
+host start and end of the last ``RING`` frames whether tracing is on or
+not (``Engine.fps_stats``).
+
+And what the benchmarks share: ``require_device`` / ``device_info`` (a
+measurement names the card it ran on, and fails where there is none),
 ``device_activity`` (a trace's device rows: their sum, the time the device
-was busy and their span),
-``timed`` and ``turn_medians`` (two variants compared in alternating turns
-inside one process, because the host clock drifts between runs) and
-``graph_pool_bytes`` (the memory of a set of captured programs).
-
-PyTorch returns before the device finishes, so a stage that ends in device
-work passes ``sync=`` a tensor or a nest of tensors: the timer then waits
-with ``torch.cuda.synchronize()`` when one of them lives on a CUDA device.
+was busy and their span), ``timed`` and ``turn_medians`` (two variants
+compared in alternating turns inside one process, because the host clock
+drifts between runs) and ``graph_pool_bytes`` (the memory of a set of
+captured programs).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import os
 import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
-EWMA_ALPHA = 0.6
-EWMA_WINDOW = 5
+RING = 4096  # calls (frames) the rings hold
+OUTSIDE = "outside the engine"  # host time no engine span covers
+
+# the ProgramMarks being recorded; None: marks return at once
+_ARMED = None
 
 
-def _tensors(nest):
-    """The tensors of a nest of dicts, lists, tuples and dataclasses."""
-    if isinstance(nest, torch.Tensor):
-        yield nest
-    elif isinstance(nest, dict):
-        for v in nest.values():
-            yield from _tensors(v)
-    elif isinstance(nest, (list, tuple)):
-        for v in nest:
-            yield from _tensors(v)
-    elif hasattr(nest, "__dataclass_fields__"):
-        for name in nest.__dataclass_fields__:
-            yield from _tensors(getattr(nest, name))
+def armed() -> bool:
+    """Whether a program is being recorded (a mark or count is kept)."""
+    return _ARMED is not None
 
 
-class StageTimer:
+def mark(name: str):
+    """A boundary inside a program: the span ``name`` starts here."""
+    if _ARMED is None:
+        return
+    _ARMED.add(name)
+
+
+def end():
+    """A program's last boundary: every span still open ends here."""
+    if _ARMED is None:
+        return
+    _ARMED.add(None)
+
+
+def count(name: str, value: torch.Tensor, over: int = 0):
+    """A counter the program computes anyway, a 0-dim integer tensor the
+    recording keeps (on a card the graph writes it on every replay): it
+    reads as ``max(value - over, 0)``."""
+    if _ARMED is None:
+        return
+    _ARMED.counts.append((name, value, over))
+
+
+class HostStamp:
+    """The host clock in the place of a CUDA timing event (the CPU)."""
+
+    __slots__ = ("ns",)
+
     def __init__(self):
-        self._ewma: dict[str, float] = {}
-        self._history: dict[str, list] = {}
+        self.ns = 0
+
+    def record(self):
+        self.ns = time.perf_counter_ns()
+
+    def query(self) -> bool:
+        return True
+
+    def elapsed_time(self, other: "HostStamp") -> float:
+        return (other.ns - self.ns) / 1e6
+
+
+def span_tree(names: list, root: str | None = None) -> list[tuple]:
+    """The spans a program's marks open (``names``, None for ``end()``):
+    ``(name, parent, first, last)``, the parent's index in the list (None
+    at the top) and the indices of the span's first mark and of the mark
+    that ends it, in the order the spans open. ``root`` adds a span from
+    the first mark to the last, the parent of the top level."""
+    spans: list = []
+    open_: list = []
+    top = None
+    if root is not None and names:
+        spans.append([root, None, 0, len(names) - 1])
+        top = 0
+    for i, name in enumerate(names):
+        while open_ and (name is None or not name.startswith(
+                spans[open_[-1]][0] + ".")):
+            spans[open_.pop()][3] = i
+        if name is not None:
+            spans.append([name, open_[-1] if open_ else top, i, None])
+            open_.append(len(spans) - 1)
+    if open_:
+        raise ValueError(f"spans not ended: {[spans[j][0] for j in open_]}")
+    return [tuple(s) for s in spans]
+
+
+def with_self_times(spans: list[dict]) -> list[dict]:
+    """Adds ``self_ms`` to each span dict (``ms`` and ``parent``, an index
+    into ``spans``): its time less the part its children cover."""
+    for s in spans:
+        s["self_ms"] = s["ms"]
+    for s in spans:
+        if s["parent"] is not None:
+            spans[s["parent"]]["self_ms"] -= s["ms"]
+    return spans
+
+
+class ProgramMarks:
+    """The marks and counters of one program (``mark``, ``end``,
+    ``count``). ``root`` names a span over all its marks (the frame
+    program's ``frame``). On a card they are recorded once, into the
+    captured graph, whose replays record the same events again; on the
+    CPU every run records new stamps."""
+
+    def __init__(self, cuda: bool, root: str | None = None):
+        self.cuda, self.root = cuda, root
+        self.names: list = []
+        self.stamps: list = []
+        self.counts: list = []
+        self.spans: list = []
+
+    def add(self, name):
+        if self.cuda:
+            stamp = torch.cuda.Event(enable_timing=True, external=True)
+        else:
+            stamp = HostStamp()
+        stamp.record()
+        self.names.append(name)
+        self.stamps.append(stamp)
 
     @contextlib.contextmanager
-    def stage(self, name: str, sync=None):
-        t0 = time.perf_counter()
-        yield
-        if sync is not None:
-            for t in _tensors(sync):
-                if t.is_cuda:
-                    torch.cuda.synchronize(t.device)
-                    break
-        dt = time.perf_counter() - t0
-        hist = self._history.setdefault(name, [])
-        hist.append(dt)
-        del hist[:-EWMA_WINDOW]
-        prev = self._ewma.get(name, dt)
-        self._ewma[name] = EWMA_ALPHA * dt + (1.0 - EWMA_ALPHA) * prev
+    def recording(self):
+        """Marks and counts inside the block are this program's."""
+        global _ARMED
+        self.names, self.stamps, self.counts = [], [], []
+        before, _ARMED = _ARMED, self
+        try:
+            yield self
+        finally:
+            _ARMED = before
+        self.spans = span_tree(self.names, self.root)
 
-    def history(self, name: str) -> list[float]:
-        """The stage's last ``EWMA_WINDOW`` timings, in milliseconds."""
-        return [t * 1e3 for t in self._history.get(name, [])]
+    def counters(self) -> dict:
+        """The counters as the program's last run left them."""
+        if not self.counts:
+            return {}
+        vals = torch.stack([v.to(torch.int64).reshape(())
+                            for _, v, _ in self.counts]).tolist()
+        return {name: max(v - over, 0)
+                for (name, _, over), v in zip(self.counts, vals)}
 
-    def report(self) -> dict[str, float]:
-        """EWMA milliseconds per stage."""
-        return {k: v * 1e3 for k, v in self._ewma.items()}
 
-    def hud_line(self) -> str:
-        parts = [f"{k}={v:.1f}ms" for k, v in sorted(self.report().items())]
-        return " | ".join(parts)
+def recording(marks: ProgramMarks | None):
+    """``marks.recording()``, or nothing for None."""
+    return contextlib.nullcontext() if marks is None else marks.recording()
+
+
+class CallRing:
+    """The host start and end (``time.perf_counter_ns()``) of the last
+    ``size`` calls; ``n`` counts every call."""
+
+    def __init__(self, size: int = RING):
+        self.t = np.zeros((size, 2), np.int64)
+        self.n = 0
+
+    def add(self, t0: int, t1: int):
+        self.t[self.n % len(self.t)] = (t0, t1)
+        self.n += 1
+
+    def times(self) -> np.ndarray:
+        """(k, 2) start and end of the calls held, oldest first."""
+        k = min(self.n, len(self.t))
+        return self.t[np.arange(self.n - k, self.n) % len(self.t)]
+
+
+class _Call:
+    """One Engine call being recorded, then read back."""
+
+    __slots__ = ("kind", "index", "host", "stack", "profiled", "programs",
+                 "anchor", "anchor_ns", "tail", "device")
+
+    def __init__(self, kind: str, index: int):
+        self.kind, self.index = kind, index
+        self.host: list = []  # [name, parent, start ns, end ns, tag]
+        self.stack: list = []
+        self.profiled: list = []  # record_function rows open
+        self.programs: list = []  # (key, marks, spans, stamps)
+        self.anchor = self.tail = self.device = None
+        self.anchor_ns = None
+
+
+def idle_by_span(lo: int, hi: int, spans) -> list:
+    """``[name, ms]`` of the host time ``[lo, hi)`` (ns), each instant put
+    down to the innermost (shortest) of ``spans`` (``(name, start, end)``
+    in ns) covering it, ``OUTSIDE`` where none does."""
+    cuts = sorted({lo, hi} | {t for _, s, e in spans for t in (s, e)
+                              if lo < t < hi})
+    acc: dict = {}
+    for a, b in zip(cuts, cuts[1:]):
+        mid = (a + b) / 2
+        inner = [(e - s, name) for name, s, e in spans if s <= mid < e]
+        name = min(inner)[1] if inner else OUTSIDE
+        acc[name] = acc.get(name, 0) + (b - a)
+    return [[k, v / 1e6] for k, v in acc.items()]
+
+
+class FrameTracer:
+    """What the Engine's calls record with tracing on (see the module
+    docstring): ``open`` a call, ``host`` spans inside it, ``anchor``,
+    ``replayed`` programs, ``close``; ``poll`` reads completed calls into
+    the ring."""
+
+    def __init__(self, device, size: int = RING):
+        self.cuda = torch.device(device).type == "cuda"
+        self.ring: list = [None] * size
+        self.calls = 0
+        self.unread = 0
+        self.feed_waits = 0
+        self._pending: collections.deque = collections.deque()
+        self._call: _Call | None = None
+        self.last: _Call | None = None  # the last call that ran a program
+        self._last_tail = None  # (index, event) of the last call read
+        self._free: list = []  # timing events to reuse
+
+    def _stamp(self):
+        if not self.cuda:
+            return HostStamp()
+        if self._free:
+            return self._free.pop()
+        return torch.cuda.Event(enable_timing=True)
+
+    # -- recording ---------------------------------------------------------
+    @contextlib.contextmanager
+    def call(self, kind: str, t0: int | None = None):
+        """The block is one call (``open``, ``close``); yields the
+        tracer."""
+        self.open(kind, time.perf_counter_ns() if t0 is None else t0)
+        try:
+            yield self
+        finally:
+            self.close()
+
+    def open(self, kind: str, t0: int):
+        """A call starting at host time ``t0`` (ns): its host span
+        ``kind``."""
+        self._call = _Call(kind, self.calls)
+        self.calls += 1
+        self._enter(kind, None, t0)
+
+    def _enter(self, name: str, tag=None, t0: int | None = None):
+        c = self._call
+        rf = None
+        if torch.autograd._profiler_enabled():
+            rf = torch.profiler.record_function(
+                name if tag is None else f"{name} {tag}")
+            rf.__enter__()
+        c.profiled.append(rf)
+        c.stack.append(len(c.host))
+        c.host.append([name, c.stack[-2] if len(c.stack) > 1 else None,
+                       time.perf_counter_ns() if t0 is None else t0, None,
+                       tag])
+
+    def _exit(self):
+        c = self._call
+        c.host[c.stack.pop()][3] = time.perf_counter_ns()
+        rf = c.profiled.pop()
+        if rf is not None:
+            rf.__exit__(None, None, None)
+
+    @contextlib.contextmanager
+    def host(self, name: str, tag=None):
+        """A host span of the open call."""
+        self._enter(name, tag)
+        try:
+            yield
+        finally:
+            self._exit()
+
+    def anchor(self):
+        """The call's anchor: a timing event on the current stream, at this
+        host time (once a call)."""
+        c = self._call
+        if c.anchor is None:
+            c.anchor = self._stamp()
+            c.anchor_ns = time.perf_counter_ns()
+            c.anchor.record()
+
+    def before_replay(self, marks: ProgramMarks):
+        """Calls not yet completed that replayed ``marks``' program are
+        counted unread: the replay about to run records its events
+        again."""
+        if not any(p[3] is marks.stamps for c in self._pending
+                   for p in c.programs):
+            return
+        self.poll()
+        keep = collections.deque()
+        for c in self._pending:
+            if any(p[3] is marks.stamps for p in c.programs):
+                self.unread += 1
+                if self.cuda:
+                    self._free += [c.anchor, c.tail]
+                self._store(c)
+            else:
+                keep.append(c)
+        self._pending = keep
+
+    def replayed(self, key, marks: ProgramMarks):
+        self.anchor()
+        self._call.programs.append((key, marks, marks.spans, marks.stamps))
+
+    def close(self):
+        """The call ends: its tail event; the calls completed by now are
+        read (inside the span ``engine.trace``: on a card the device is
+        still running this call); then its host span ends."""
+        c = self._call
+        if c.anchor is not None:
+            c.tail = self._stamp()
+            c.tail.record()
+            self._pending.append(c)
+        self._enter("engine.trace")
+        self.poll()
+        self._exit()
+        self._exit()
+        self._call = None
+        if c.programs:
+            self.last = c
+        if c.anchor is None:
+            self._store(c)
+
+    # -- reading back ------------------------------------------------------
+    def poll(self):
+        """Read the pending calls whose tail has completed, oldest first."""
+        while self._pending and self._pending[0].tail.query():
+            self._read(self._pending.popleft())
+
+    def _read(self, c: _Call):
+        a = c.anchor
+        times = [[a.elapsed_time(s) for s in stamps]
+                 for _, _, _, stamps in c.programs]
+        tail_ms = a.elapsed_time(c.tail)
+        gap = None
+        if self._last_tail is not None:
+            index, ev = self._last_tail
+            if index == c.index - 1:
+                gap = ev.elapsed_time(a)
+            if self.cuda:
+                self._free.append(ev)
+        self._last_tail = (c.index, c.tail)
+        if self.cuda:
+            self._free.append(a)
+        c.device = (times, tail_ms, gap)
+        c.anchor = c.tail = None
+        self._store(c)
+
+    def _store(self, c: _Call):
+        self.ring[c.index % len(self.ring)] = c
+
+    def calls_held(self) -> list[_Call]:
+        """The calls in the ring, oldest first."""
+        size = len(self.ring)
+        out = []
+        for i in range(max(0, self.calls - size), self.calls):
+            c = self.ring[i % size]
+            if c is not None and c.index == i:
+                out.append(c)
+        return out
+
+    def frames(self) -> list[dict]:
+        """Every call in the ring as a dict (``Engine.trace_report``)."""
+        calls = self.calls_held()
+        by_index = {c.index: c for c in calls}
+        return [call_dict(c, by_index.get(c.index - 1)) for c in calls]
+
+
+def call_dict(c: _Call, prev: _Call | None) -> dict:
+    """One call read back: its host spans (``start_ms`` from the call's
+    start), and where it was read, its device spans (``start_ms`` from the
+    anchor; ``program`` the program's key as a string, ``kind`` its first
+    element), ``launch_ms`` (anchor to the first mark), ``busy_ms`` (first
+    mark to tail), ``gap_ms`` (the previous call's tail to the anchor;
+    None where the previous call was not read), ``queued`` (the stream was
+    busy when the anchor was recorded: its device times cannot be put on
+    the host clock), ``cycle_ms`` (previous tail to tail), ``anchor_ms``
+    (the anchor on the host clock, from the call's start) and ``idle`` (the
+    gap put down to the host spans that covered it)."""
+    t0 = c.host[0][2]
+    d = {"index": c.index, "call": c.kind,
+         "programs": [str(p[0]) for p in c.programs],
+         "host": with_self_times([
+             {"name": name, "parent": parent, "start_ms": (s - t0) / 1e6,
+              "ms": (e - s) / 1e6, "tag": None if tag is None else str(tag)}
+             for name, parent, s, e, tag in c.host]),
+         "unread": bool(c.programs) and c.device is None}
+    if c.device is None:
+        return d
+    times, tail_ms, gap = c.device
+    spans = []
+    for (key, _, tree, _), t in zip(c.programs, times):
+        base = len(spans)
+        for name, parent, first, last in tree:
+            spans.append({"name": name, "program": str(key),
+                          "kind": key[0],
+                          "parent": None if parent is None else base + parent,
+                          "start_ms": t[first], "ms": t[last] - t[first]})
+    marks = [x for t in times for x in t]
+    launch = marks[0] if marks else None
+    queued = gap is None or gap <= 0.0
+    d.update(spans=with_self_times(spans), launch_ms=launch,
+             busy_ms=None if launch is None else tail_ms - launch,
+             tail_ms=tail_ms, gap_ms=gap, queued=queued,
+             cycle_ms=None if gap is None else gap + tail_ms,
+             anchor_ms=(c.anchor_ns - t0) / 1e6, idle=[])
+    if not queued:
+        host = [(name, s, e) for call in (prev, c) if call is not None
+                for name, _, s, e, _ in call.host]
+        d["idle"] = idle_by_span(c.anchor_ns - int(gap * 1e6), c.anchor_ns,
+                                 host)
+    return d
+
+
+def export_lines(path: str, report: dict):
+    """``report`` (``Engine.trace_report``) as JSON lines: the counters,
+    then one line a call."""
+    with open(path, "w") as fh:
+        fh.write(json.dumps({"counters": report["counters"]}) + "\n")
+        for f in report["frames"]:
+            fh.write(json.dumps(f) + "\n")
 
 
 @contextlib.contextmanager

@@ -12,9 +12,12 @@ and on each:
   frame) over 4 rounds of turns (none, shadows, custom, custom, shadows,
   none), so the engines see the same card and host and the spread between
   turns shows;
-* times the frame's three parts (step, shadow-map update, render) through
-  ``runtime.profiling.StageTimer`` with a synchronize after each: the
-  median of each stage's last timings and the timer's EWMA;
+* reads the frame's parts from the engine's own spans
+  (``Engine.set_tracing``, ``trace_report``): over traced frames, the
+  median device ms of the step and its four stages, the shadow-map update
+  on the frames that update a map and on those the interval skips, the
+  render and its stages, the copies back (``store``), the input copy and
+  graph start (``launch``) and the device idle before each frame;
 * traces 6 frames with ``torch.profiler`` (CPU and CUDA): host API
   launches a frame (graph launches, kernel launches, copies and memsets:
   the Engine replays each frame's captured programs, so a frame is a
@@ -69,32 +72,35 @@ HOST_LAUNCH_APIS = ("cudaGraphLaunch", "cudaLaunchKernel",
 
 
 def _parts(eng, n):
-    """The step, the shadow update (split into updates that render a map
-    and updates the interval skips) and the render through a StageTimer:
-    per stage the median of its last timings and its EWMA, in ms."""
-    import torch
-
-    from render_engine_tpu_torch.logic.types import InputState
-    from render_engine_tpu_torch.runtime.profiling import StageTimer
-
-    timer = StageTimer()
-    mark = torch.empty(0, device=eng.device)  # what the stages wait on
-    for _ in range(n):
-        inputs = InputState.idle(eng.frame_index).with_prev(eng._prev_keys)
-        with timer.stage("step", sync=mark):
-            eng.step(inputs, DT)
-        sh = eng.shadow_state
-        if sh is not None:
-            renders = sh.tick % eng.config.shadow_update_interval == 0
-            with timer.stage("shadow_map_update" if renders
-                             else "shadow_skipped_update", sync=mark):
-                eng.update_shadows()
-        with timer.stage("render", sync=mark):
-            eng.render()
-        eng.frame_index += 1
-    ewma = timer.report()
-    return ({k: statistics.median(timer.history(k)) for k in ewma}, ewma,
-            timer.hud_line())
+    """The frame's parts, in device ms, from ``n`` traced frames (each
+    synchronized, after ``2 n`` that capture the traced programs): the
+    median of each span by name (``shadows`` split into
+    ``shadow_map_update`` and ``shadow_skipped_update``), of ``launch``
+    (anchor to the first mark) and of ``idle_before`` (the last frame's
+    tail to this one's anchor)."""
+    eng.set_tracing(True)
+    try:
+        _timed_frames(eng, 2 * n)
+        first = eng.trace_report()["counters"]["frames"]
+        _timed_frames(eng, n)
+        calls = [c for c in eng.trace_report()["frames"]
+                 if c["index"] >= first and c.get("spans")]
+    finally:
+        eng.set_tracing(False)
+    acc: dict = {}
+    for c in calls:
+        sp = c["spans"]
+        for i, s in enumerate(sp):
+            name = s["name"]
+            if name == "shadows":
+                name = ("shadow_map_update"
+                        if any(k["parent"] == i for k in sp)
+                        else "shadow_skipped_update")
+            acc.setdefault(name, []).append(s["ms"])
+        acc.setdefault("launch", []).append(c["launch_ms"])
+        if c["gap_ms"] is not None:
+            acc.setdefault("idle_before", []).append(c["gap_ms"])
+    return {k: statistics.median(v) for k, v in acc.items()}
 
 
 def _trace(eng, frames, out_dir, tag):
@@ -176,8 +182,10 @@ def main() -> int:
                "ms_per_frame_turn_quartiles": statistics.quantiles(
                    turn_medians, n=4)[::2],
                }
-        res["part_ms_median"], res["part_ms_ewma"], hud = _parts(eng, 9)
-        print(f"[{name}] {hud}", flush=True)
+        res["part_ms_median"] = _parts(eng, 9)
+        print(f"[{name}] " + " | ".join(
+            f"{k}={v:.3f}ms" for k, v in res["part_ms_median"].items()),
+            flush=True)
         res.update(_trace(eng, 6, args.out, name))
         print(json.dumps(res), flush=True)
         results[name] = res

@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from render_engine_tpu.render.textures import _load_png
-from render_engine_tpu.runtime import profiling as PJ
 from render_engine_tpu.utils import png as PNGJ
 from render_engine_tpu_torch.demo.space_scene import build_space_engine
 from render_engine_tpu_torch.logic.types import (KEY_SPACE, KEY_W, NUM_KEYS,
@@ -33,50 +32,8 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 
 class TestStageTimer:
-    def test_constants_are_the_jax_packages(self):
-        assert PT.EWMA_ALPHA == PJ.EWMA_ALPHA == 0.6
-        assert PT.EWMA_WINDOW == PJ.EWMA_WINDOW == 5
-
-    def test_ewma_report(self):
-        t = PT.StageTimer()
-        for _ in range(3):
-            with t.stage("logic"):
-                pass
-            with t.stage("render", sync=torch.ones(4)):
-                pass
-        rep = t.report()
-        assert set(rep) == {"logic", "render"}
-        assert all(v >= 0 for v in rep.values())
-        assert "logic=" in t.hud_line() and " | " in t.hud_line()
-
-    def test_ewma_follows_the_jax_timer(self, monkeypatch):
-        """The same clock readings give the same EWMA and window."""
-        ticks = [0.0, 0.010, 1.0, 1.030, 2.0, 2.002, 3.0, 3.050, 4.0, 4.001,
-                 5.0, 5.020, 6.0, 6.004]
-        out = []
-        for mod in (PT, PJ):
-            it = iter(ticks)
-            monkeypatch.setattr(mod.time, "perf_counter", lambda: next(it))
-            t = mod.StageTimer()
-            for _ in range(len(ticks) // 2):
-                with t.stage("s"):
-                    pass
-            out.append((t.report()["s"], list(t._history["s"])))
-        assert out[0][0] == pytest.approx(out[1][0], rel=1e-12)
-        assert out[0][1] == pytest.approx(out[1][1])
-        assert len(out[0][1]) == PT.EWMA_WINDOW
-
-    def test_sync_takes_a_nest(self):
-        eng = build_space_engine(device="cpu", width=128, height=32,
-                                 capacity=64, num_asteroids=4, max_tris=1024,
-                                 enable_shadows=False)
-        t = PT.StageTimer()
-        with t.stage("world", sync=eng.world):
-            pass
-        with t.stage("mixed", sync={"a": [torch.ones(2), 3], "b": None}):
-            pass
-        assert set(t.report()) == {"world", "mixed"}
-        assert len(list(PT._tensors(eng.world))) == 2 + len(eng.world.comps)
+    """``runtime/profiling.py``'s ``trace`` and ``device_activity`` (its
+    spans: tests/test_torch_spans.py)."""
 
     def test_trace_writes_a_chrome_trace(self, tmp_path):
         with PT.trace(str(tmp_path / "tr")) as prof:
