@@ -175,19 +175,33 @@ Phases (any failure exits non-zero; no phase catches its own):
              loaded and the station's parse equal to the Python parse, with
              the ms of each; 33 captured frames, each launching K1 twice
              on map frames and once on the rest, K2 twice (every tile of
-             each layer) and no K3, a finite lit image, all 13 drop
-             counters 0, peak device memory; every route of phase 13 (32
-             steps) captured against eager bit for bit (world hash, image,
-             shadow state, counters, launches), capture seconds and graph
-             pool MiB; a frame that renders a map through the eager
-             programs, its K1 (both modes) and K2 (both layers, A = 48)
-             against their plain versions, exact; the frame through the
-             kernels against the plain versions (1e-5); K2's record
-             (resolve_nonfused: device ms, bound, torch.gather); a profile
-             (host API calls, device rows and time a frame, busy share, the
-             rows that take the most device time); ms a captured frame in
-             turns against a second engine on the fused route; both
-             engines' graph pools.
+             each layer), the shading kernel (csrc/deferred_shade.cu) once
+             and no K3, a finite lit image, all 13 drop counters 0, peak
+             device memory; every route of phase 13 (32 steps) captured
+             against eager bit for bit (world hash, image, shadow state,
+             counters, launches), capture seconds and graph pool MiB; a
+             frame that renders a map through the eager programs, its K1
+             (both modes) and K2 (both layers, A = 48) against their plain
+             versions, exact; the frame through the kernels against the
+             plain versions (1e-5); the shading kernel against its plain
+             version on that frame's arguments (the flags equal, every
+             composed pixel and covered plane within 1e-5, the share of
+             pixels beyond 2/255 reported), with its record (device ms,
+             bound, share, plain ms); K2's record (resolve_nonfused:
+             device ms, bound, torch.gather); a profile (host API calls,
+             device rows and time a frame, busy share, the rows that take
+             the most device time); the shading kernel's launches a frame
+             on both routes (1 and 0); ms a captured frame in turns
+             against a second engine on the fused route; both engines'
+             graph pools; last, the shading kernel against its plain
+             version, as above, on frames that take its other branches
+             (DEFERRED_FRAMES: every texture role and per-pixel
+             shininess; directional, spot and point rows with dead rows
+             of each kind; six slots at pcf_scale 1 and 3; the shadowed
+             head of four point rows and chunks of 5 to 7 rows), on the
+             many-lights engine on this route and on this engine with a
+             fragment-shading system, whose textured G-buffer planes the
+             kernel writes.
 Every phase drives the captured Engine. Where a phase holds a kernel
 against its plain version on a frame's own inputs (phases 2, 3, 7, 8, 10),
 that frame runs through ``Eager``, so the kernel wrappers see each call;
@@ -289,6 +303,11 @@ KERNELS = {  # record name -> (launch-count key, source, TPU kernel)
     "resolve_nonfused": ("resolve_nonfused",
                          "render_engine_tpu_torch/csrc/resolve.cu",
                          "render_engine_tpu/render/raster_pallas.py:476"),
+    # the default route's shading (phase 16): the JAX package leaves it to
+    # XLA, so it replaces no Pallas kernel
+    "deferred_shade": ("deferred_shade",
+                       "render_engine_tpu_torch/csrc/deferred_shade.cu",
+                       None),
 }
 MAIN_PATH = ("tile_raster", "tile_raster_one_pass", "resolve", "fused_shade")
 # phase 11: bands of tile rows, and the image limits of the JAX package's
@@ -302,6 +321,23 @@ NONFUSED_MAX_DIFF = 0.05
 NONFUSED_FLIPS = 1e-5  # share of pixels whose PCF taps may flip
 FLIP_MAX = 1.0 / 9.0  # ceiling on a flipped pixel's change (0.0587 seen)
 NONFUSED_TURNS = ("fused", "nonfused", "nonfused", "fused") * 2
+# phase 16: the shading kernel against its plain version: every composed
+# pixel and covered plane within DEFERRED_TOL; the share of pixels beyond
+# two 8-bit steps is reported
+DEFERRED_TOL = 1e-5
+DEFERRED_STEP = 2.0 / 255.0
+# the frames of tests/deferred_scenes.py the kernel is held on beyond the
+# headline's: label -> (scene, pcf_scale or None for no shadow maps,
+# width, height, extra point lights, max_point_lights). The lit scene's
+# point rows: with maps a shadowed head of four, then a chunk of six (two
+# dead); without, one chunk of seven or of five, every row live
+DEFERRED_FRAMES = {
+    "featured": ("featured", None, 600, 340, 0, 4),
+    "lit, pcf_scale 1": ("lit", 1, 600, 340, 7, 10),
+    "lit, pcf_scale 3": ("lit", 3, 600, 340, 7, 10),
+    "lit, no maps, a chunk of 7": ("lit", None, 600, 340, 6, 7),
+    "lit, no maps, a chunk of 5": ("lit", None, 600, 340, 4, 5),
+}
 DROP_KEYS = 13  # 6 step counters and 7 render counters with shadows
 DROP_KEYS_LIGHTS = 14  # and light_tile_overflow with a light-list budget
 LIVE_BINS = (0, 1, 9, 17, 33, 65, 129, 257)  # K1 live candidates a tile
@@ -395,22 +431,25 @@ class Capture:
 
 
 class Plain:
-    """Route the three kernel wrappers to their plain PyTorch versions on
+    """Route the four kernel wrappers to their plain PyTorch versions on
     the card (for the whole-frame comparison)."""
 
     def __enter__(self):
+        from render_engine_tpu_torch.render import deferred_shade as DS
         from render_engine_tpu_torch.render import raster_pallas as RP
         from render_engine_tpu_torch.render import shade_pallas as SP
 
         self.saved = [(RP, "tile_raster", RP.tile_raster),
                       (RP, "resolve_attributes_pallas",
                        RP.resolve_attributes_pallas),
-                      (SP, "shade_tiles", SP.shade_tiles)]
+                      (SP, "shade_tiles", SP.shade_tiles),
+                      (DS, "deferred_shade", DS.deferred_shade)]
         RP.tile_raster = RP.tile_raster_reference
         RP.resolve_attributes_pallas = (
             lambda slot, rows, cfg=None:
             RP.resolve_attributes_reference(slot, rows))
         SP.shade_tiles = SP.fused_shade_reference
+        DS.deferred_shade = DS.deferred_shade_reference
         return self
 
     def __exit__(self, *exc):
@@ -961,13 +1000,15 @@ def phase_slice(eng):
     return launches
 
 
-def frame_launches(renders_map, resolve=1, tile_lists=0):
+def frame_launches(renders_map, resolve=1, tile_lists=0, deferred=0):
     """The launches one frame must make: K1 twice when it renders a shadow
     map and once otherwise, K2 ``resolve`` times, K3 once (``tile_lists``:
-    1 when it loops over lists)."""
+    1 when it loops over lists), the default route's shading kernel
+    ``deferred`` times."""
     return {"tile_raster": 1 + int(renders_map),
             "tile_raster_one_pass": int(renders_map), "resolve": resolve,
-            "fused_shade": 1, "fused_shade_tile_lists": tile_lists}
+            "fused_shade": 1, "fused_shade_tile_lists": tile_lists,
+            "deferred_shade": deferred}
 
 
 def hold_kernels(eng, label, k3=False):
@@ -2422,7 +2463,8 @@ def frame_profile(eng, frames):
     seen = {"tile_raster": named("tile_raster_kernel"),
             "tile_raster_one_pass": named("tile_raster_kernel<false>"),
             "resolve": named("resolve_kernel"),
-            "fused_shade": named("fused_shade_kernel")}
+            "fused_shade": named("fused_shade_kernel"),
+            "deferred_shade": named("deferred_shade_kernel")}
     if any(seen[k] != counted[k] for k in seen):
         raise RuntimeError(f"the profiler saw {seen} kernels in {frames} "
                            f"frames, the launch counts say {counted}")
@@ -2970,8 +3012,9 @@ def route_engine(fused):
 def default_counted_run(eng):
     """WARMUP + TIMED captured frames from the reset state: each launches
     K1 twice on map frames and once otherwise, K2 twice (every tile of
-    each layer) and no K3; the image finite and lit; the 13 drop counters
-    0. Returns the launches, the median ms and the peak device memory."""
+    each layer), the shading kernel once and no K3; the image finite and
+    lit; the 13 drop counters 0. Returns the launches, the median ms and
+    the peak device memory."""
     import torch
 
     from render_engine_tpu_torch import kernels
@@ -2990,7 +3033,8 @@ def default_counted_run(eng):
         torch.cuda.synchronize()
         if i >= WARMUP:
             times.append((time.perf_counter() - t0) * 1e3)
-        want = dict(frame_launches(renders_map, resolve=2), fused_shade=0)
+        want = dict(frame_launches(renders_map, resolve=2, deferred=1),
+                    fused_shade=0)
         if launch_delta(before) != want:
             raise RuntimeError(f"[default-route] frame {i} launched "
                                f"{launch_delta(before)}, expected {want}")
@@ -2999,8 +3043,9 @@ def default_counted_run(eng):
     lit = float((img.amax(dim=-1) > 0.05).double().mean())
     med = statistics.median(times)
     log(f"[default-route] launches in {WARMUP + TIMED} captured frames: "
-        f"{launches} (K1 twice on map frames, once on the rest; K2 twice a "
-        f"frame; no K3); {TIMED} timed frames: median {med:.2f} ms/frame, "
+        f"{launches} (K1 twice on map frames, once on the rest; K2 twice and "
+        f"deferred_shade once a frame; no K3); {TIMED} timed frames: median "
+        f"{med:.2f} ms/frame, "
         f"min {min(times):.2f}, max {max(times):.2f}; peak device memory "
         f"{peak / 2**20:.0f} MiB; image max {float(img.max()):.3f}, share "
         f"of pixels above 0.05: {lit:.4f}")
@@ -3008,8 +3053,8 @@ def default_counted_run(eng):
             and lit > 1e-3):
         raise RuntimeError("[default-route] the image is not finite or "
                            "(nearly) blank")
-    missing = [k for k in ("tile_raster", "tile_raster_one_pass", "resolve")
-               if launches[k] == 0]
+    missing = [k for k in ("tile_raster", "tile_raster_one_pass", "resolve",
+                           "deferred_shade") if launches[k] == 0]
     if missing:
         raise RuntimeError(f"[default-route] launched no {missing}")
     drops = eng.drop_stats()
@@ -3022,10 +3067,12 @@ def default_counted_run(eng):
 def hold_default_kernels(eng):
     """One eager frame of ``eng`` that renders a shadow map, every kernel
     call's inputs captured: K1 in both modes and K2 over every tile of
-    each layer against their plain versions, exact; no K3. Returns the
-    opaque layer's K2 arguments."""
+    each layer against their plain versions, exact; no K3; one call of the
+    shading kernel. Returns the opaque layer's K2 arguments and the
+    shading kernel's."""
     import torch
 
+    from render_engine_tpu_torch.render import deferred_shade as DS
     from render_engine_tpu_torch.render import raster_pallas as RP
     from render_engine_tpu_torch.render import shade_pallas as SP
 
@@ -3035,13 +3082,16 @@ def hold_default_kernels(eng):
         eng.frame(None, DT)
     with Eager(eng), Capture(RP, "tile_raster") as k1, \
             Capture(RP, "resolve_attributes_pallas") as k2, \
-            Capture(SP, "shade_tiles") as k3:
+            Capture(SP, "shade_tiles") as k3, \
+            Capture(DS, "deferred_shade") as ds:
         eng.frame(None, DT)
     modes = [kw["two_pass"] for _, kw in k1.calls]
     tiles = [a[0].shape[0] for a, _ in k2.calls]
-    if modes != [False, True] or tiles != [nt, nt] or k3.calls:
+    if (modes != [False, True] or tiles != [nt, nt] or k3.calls
+            or len(ds.calls) != 1):
         raise RuntimeError(f"[default-route] K1 calls with two_pass {modes}, "
-                           f"K2 over {tiles} tiles, {len(k3.calls)} K3 calls")
+                           f"K2 over {tiles} tiles, {len(k3.calls)} K3 calls, "
+                           f"{len(ds.calls)} deferred_shade calls")
     for (a, kw), name in zip(k1.calls, ("K1 one-pass", "K1")):
         err = check_close(f"default-route {name}", RP.tile_raster(*a, **kw),
                           RP.tile_raster_reference(*a, **kw), 0.0)
@@ -3056,15 +3106,185 @@ def hold_default_kernels(eng):
             f"{float((a[0] >= 0).double().mean()):.4f}): max_abs_err "
             f"{err:.3g} (exact)")
     torch.cuda.synchronize()
-    return k2.calls[0][0]
+    return k2.calls[0][0], ds.calls[0]
+
+
+def deferred_agreement(got, want):
+    """The shading kernel's ``(packed, textured)`` against its plain
+    version's: the flags equal; the composed pixels over a black background
+    (what the frame shows), their largest channel difference and the share
+    of pixels beyond DEFERRED_STEP; the largest difference of the covered
+    layers' planes and of the textured G-buffer planes, where asked for."""
+    import torch
+
+    from render_engine_tpu_torch.render.frame import compose
+
+    (got, g_tex), (want, w_tex) = got, want
+    if not torch.equal(got[..., 7], want[..., 7]):
+        raise RuntimeError("[default-route] deferred_shade's flags differ "
+                           "from its plain version's")
+    zero = torch.zeros(got.shape[:-1] + (3,), device=got.device)
+    diff = (compose(got, zero) - compose(want, zero)).abs().amax(dim=-1)
+    flags = want[..., 7]
+    cov_o = torch.remainder(flags, 2.0) >= 1.0
+    cov_t = (got[..., 3:6] != 0).any(-1) | (want[..., 3:6] != 0).any(-1)
+    planes = torch.cat([
+        torch.where(cov_o[..., None], got[..., 0:3] - want[..., 0:3], 0.0),
+        torch.where(cov_t[..., None], got[..., 3:6] - want[..., 3:6], 0.0),
+        torch.where((flags >= 2.0)[..., None], got[..., 6:7] - want[..., 6:7],
+                    0.0)], dim=-1).abs()
+    plane_diff = float(planes.max())
+    if (g_tex is None) != (w_tex is None):
+        raise RuntimeError("[default-route] deferred_shade and its plain "
+                           "version disagree on the textured planes")
+    if g_tex is not None:
+        plane_diff = max([plane_diff] + [
+            float((getattr(a, f) - getattr(b, f)).abs().max())
+            for a, b in zip(g_tex, w_tex) for f in ("albedo", "normal")])
+    return dict(max_diff=float(diff.max()),
+                share_beyond=float((diff > DEFERRED_STEP).double().mean()),
+                share_differing=float((diff > 0).double().mean()),
+                max_plane_diff=plane_diff)
+
+
+def deferred_check(label, args, kw):
+    """The shading kernel on one frame's arguments against its plain
+    version: the flags equal, every composed pixel and covered plane within
+    DEFERRED_TOL. Returns the agreement and the kernel's result."""
+    import torch
+
+    from render_engine_tpu_torch.render import deferred_shade as DS
+
+    got = DS.deferred_shade(*args, **kw)
+    want = DS.deferred_shade_reference(*args, **kw)
+    torch.cuda.synchronize()
+    agree = deferred_agreement(got, want)
+    gbuf, _, t_gbuf, _, lights = args[:5]
+    sh = kw.get("shadow_state")
+    rows = {k: (int(getattr(lights, f"{k}_count")),
+                getattr(lights, f"{k}_entity").shape[0])
+            for k in ("dir", "pt", "sp")}
+    log(f"[default-route] deferred_shade vs plain, {label} "
+        f"({tuple(got[0].shape)}; covered opaque "
+        f"{float((gbuf.tri_id >= 0).double().mean()):.4f}, transparent "
+        f"{float((t_gbuf.tri_id >= 0).double().mean()):.4f}; live / rows "
+        f"{rows}; slots "
+        f"{None if sh is None else sh.slot_entity.tolist()}, pcf_scale "
+        f"{None if sh is None else sh.pcf_scale}; atlas "
+        f"{kw.get('atlas') is not None}, shininess plane "
+        f"{'shininess' in args[1]}, textured planes "
+        f"{bool(kw.get('gbuffer_planes'))}): composed pixels max diff "
+        f"{agree['max_diff']:.3g}, share differing "
+        f"{agree['share_differing']:.3g}, beyond 2/255 "
+        f"{agree['share_beyond']:.3g}; planes max diff "
+        f"{agree['max_plane_diff']:.3g} (each at most {DEFERRED_TOL})")
+    if not (agree["max_diff"] <= DEFERRED_TOL
+            and agree["max_plane_diff"] <= DEFERRED_TOL):
+        raise RuntimeError(f"[default-route] deferred_shade differs from its "
+                           f"plain version on {label}: {agree}")
+    return agree, got
+
+
+def deferred_record(args, kw):
+    """The shading kernel on the headline frame's arguments against its
+    plain version (``deferred_check``), its device ms, the plain version's,
+    its bound and share."""
+    from render_engine_tpu_torch import kernel_bounds as KB
+    from render_engine_tpu_torch.render import deferred_shade as DS
+
+    agree, got = deferred_check("headline frame", args, kw)
+    ms = device_ms(lambda: DS.deferred_shade(*args, **kw), 20)
+    call_ms = cuda_ms(lambda: DS.deferred_shade(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: DS.deferred_shade_reference(*args, **kw), 3)
+    work = KB.deferred_shade_work(*args, **kw)
+    bound_ms, bound_by = KB.bound(work["bytes"], work["ops"])
+    log(f"[kernels] deferred_shade on the default route's frame "
+        f"({tuple(got[0].shape)}): kernel {ms:.4f} ms (one call with its "
+        f"host cost {call_ms:.4f} ms), plain {plain_ms:.3f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({work}), share "
+        f"{bound_ms / ms:.3f}")
+    return dict(max_abs_err=agree["max_diff"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms, library_ms=None,
+                earlier_ms=None, share_beyond=agree["share_beyond"],
+                share_differing=agree["share_differing"])
+
+
+def deferred_frames(eng):
+    """``deferred_check`` on DEFERRED_FRAMES (tests/deferred_scenes.py,
+    built on the card, with 256^2 maps), on the many-lights engine on the
+    default route (its frame's arguments once every slot is mapped) and on
+    ``eng`` with a fragment-shading system (the textured G-buffer planes).
+    Returns the agreements by label."""
+    import torch
+
+    from render_engine_tpu_torch.render import deferred_shade as DS
+    from render_engine_tpu_torch.render import frame as F
+    from render_engine_tpu_torch.render import shadows as SH
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import deferred_scenes as DSC
+
+    pk = DSC.torch_packages()
+    out = {}
+    for label, (name, k, width, height, extra, n_pt) in \
+            DEFERRED_FRAMES.items():
+        if name == "featured":
+            w, bank, cam, atlas = DSC.featured(pk, width / height, "cuda")
+        else:
+            w, bank, cam, atlas = DSC.lit(pk, width / height, extra, "cuda")
+        sh = None
+        if k is not None:
+            sh = SH.create_shadow_state(resolution=256, budget=DSC.LIT_SLOTS,
+                                        pcf_scale=k, device="cuda")
+            for _ in range(DSC.LIT_SLOTS):
+                sh = SH.render_shadow_map(sh, w, cam, bank, max_tris=256)
+            if sh.slot_entity.tolist() != [0, 1, 2, 2, 2, 2]:
+                raise RuntimeError(f"{label}: slots {sh.slot_entity}")
+        s = F.RenderSettings(width=width, height=height, max_tris=256,
+                             fused_shading=False, max_point_lights=n_pt)
+        with Capture(DS, "deferred_shade") as ds:
+            F.render_frame(w, cam, bank, s, atlas=atlas, shadow_state=sh)
+        out[label] = deferred_check(label, *ds.calls[0])[0]
+    lights = build_lights_engine()
+    lights.config.record_history = False
+    lights.config.render = dataclasses.replace(lights.config.render,
+                                               fused_shading=False)
+    lights.finalize_scene()
+    lights.reset()
+    warm = (lights.config.shadow_update_interval
+            * lights.config.shadow_slots + 1)
+    with Eager(lights), Capture(DS, "deferred_shade") as ds:
+        for _ in range(warm):
+            lights.frame(None, DT)
+    out["many lights"] = deferred_check("the many-lights engine",
+                                        *ds.calls[-1])[0]
+    del lights
+    saved = eng.compiled_systems
+    eng.compiled_systems = custom_systems(eng)[0]
+    try:
+        with Eager(eng), Capture(DS, "deferred_shade") as ds:
+            eng.render()
+    finally:
+        eng.compiled_systems = saved
+    if not ds.calls[0][1]["gbuffer_planes"]:
+        raise RuntimeError("[default-route] the shading system's frame asked "
+                           "for no textured planes")
+    out["shading system"] = deferred_check(
+        "the headline engine with a fragment-shading system",
+        *ds.calls[0])[0]
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_default_route():
-    """Phase 16 (module docstring). Returns the K2 record of the route,
-    the launches of its counted run and the run's frame count."""
+    """Phase 16 (module docstring). Returns the K2 and shading-kernel
+    records of the route, the launches of its counted run and the run's
+    frame count."""
     import torch
 
     from render_engine_tpu_torch import kernel_bounds as KB
+    from render_engine_tpu_torch import kernels
     from render_engine_tpu_torch.render import raster_pallas as RP
     from render_engine_tpu_torch.runtime.profiling import turn_medians as tm
 
@@ -3074,9 +3294,10 @@ def phase_default_route():
     launches, med, peak = default_counted_run(eng)
     routes = captured_vs_eager("default route (fused_shading=False) "
                                "1080p/10k, shadows", eng, drive_routes)
-    a2 = hold_default_kernels(eng)
+    a2, (a_ds, kw_ds) = hold_default_kernels(eng)
     frame_through_plain(eng, "default-route", "whole 1080p frame with "
                         "shadows on the default route")
+    rec_ds = deferred_record(a_ds, kw_ds)
     rec = kernel_record(
         "resolve_nonfused", 0.0,
         lambda: [RP.resolve_attributes_pallas(*a2)],
@@ -3097,10 +3318,18 @@ def phase_default_route():
     fused = route_engine(fused=True)
     engines = {"fused": fused, "nonfused": eng}
     warm = eng.config.shadow_update_interval * eng.config.shadow_slots + 1
-    for e in engines.values():
+    shading = {}
+    for which, e in engines.items():
         e.reset()
+        before = dict(kernels.LAUNCHES)
         for _ in range(warm):  # every frame program captured
             e.frame(None, DT)
+        shading[which] = launch_delta(before)["deferred_shade"] / warm
+    log(f"[default-route] deferred_shade launches a frame: {shading}")
+    if shading != {"fused": 0.0, "nonfused": 1.0}:
+        raise RuntimeError("[default-route] deferred_shade should launch "
+                           "once a default-route frame and never on the "
+                           "fused route")
     mode = {}
 
     def start(which):
@@ -3113,14 +3342,17 @@ def phase_default_route():
     pools = {k: graph_pool_bytes(e) / 2**20 for k, e in engines.items()}
     log(f"[default-route] graph pools: non-fused {pools['nonfused']:.1f} "
         f"MiB, fused {pools['fused']:.1f} MiB")
+    # last: the shading system's frame drops the engine's programs
+    branches = deferred_frames(eng)
     out = dict(parse_ms=parse_ms, launches=launches, frames=WARMUP + TIMED,
                ms_per_frame_counted=med, peak_mib=peak / 2**20,
                routes=routes, profile=prof, ms_per_frame=turns,
-               pool_mib=pools)
+               pool_mib=pools, deferred_shade_per_frame=shading,
+               deferred_shade_frames=branches)
     log(json.dumps({"default_route": out}))
     del eng, fused, engines
     torch.cuda.empty_cache()
-    return rec, launches, WARMUP + TIMED
+    return rec, rec_ds, launches, WARMUP + TIMED
 
 
 def main() -> int:
@@ -3192,15 +3424,16 @@ def main() -> int:
     phase_programs()
     phase_partitioned()
     launches_m = phase_mesh()
-    rec_d, launches_d, frames_d = phase_default_route()
+    rec_d, rec_ds, launches_d, frames_d = phase_default_route()
     # the branch rows take their launches from their own phase's run; the
     # default route's K2 launches are all over every tile
     launches_d["resolve_nonfused"] = launches_d["resolve"]
     rec.update(resolve_full_frame=rec_c, fused_shade_tile_lists=rec_l,
-               resolve_nonfused=rec_d)
+               resolve_nonfused=rec_d, deferred_shade=rec_ds)
     for name, run, n in (("resolve_full_frame", launches_c, frames_c),
                          ("fused_shade_tile_lists", launches_l, frames_l),
-                         ("resolve_nonfused", launches_d, frames_d)):
+                         ("resolve_nonfused", launches_d, frames_d),
+                         ("deferred_shade", launches_d, frames_d)):
         launches[name] = run[name]
         per_frame[name] = run[name] / n
         if run[name] == 0:

@@ -10,7 +10,8 @@ tests import every module on machines without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
 where it launches its kernel and nowhere else. ``tile_raster``, ``resolve``
-and ``fused_shade`` count every launch of K1, K2 and K3; two more keys
+and ``fused_shade`` count every launch of K1, K2 and K3, ``deferred_shade``
+every launch of the default route's shading kernel; two more keys
 also count the launches of one branch: ``tile_raster_one_pass`` (K1's
 shadow-map mode) and ``fused_shade_tile_lists`` (K3 looping over per-tile
 light lists). A wrapper runs when a program is captured, not when its
@@ -39,7 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"tile_raster": 0, "tile_raster_one_pass": 0, "resolve": 0,
-            "fused_shade": 0, "fused_shade_tile_lists": 0}
+            "fused_shade": 0, "fused_shade_tile_lists": 0,
+            "deferred_shade": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +54,8 @@ _SIGNATURES = {
     "launch_fused_shade": [*[_VP] * 16, *[_I] * 10, _F, _F, *[_I] * 4,
                            _F, _F, _VP],
     "fused_shade_blocks_per_sm": [_I],
+    # a pointer to render/deferred_shade.py's DeferredArgs, and the stream
+    "launch_deferred_shade": [_VP, _VP],
 }
 
 _lock = threading.Lock()

@@ -16,10 +16,12 @@ rows, skybox toggle), then takes one of three paths, as the JAX package's
   function on its system's pixels), and the compose over the background;
 * the non-fused tiled path (every other call on a tiled backend: the
   default ``fused_shading=False``, or a custom ``shadow_factor``, which
-  cannot run inside K3's light loop): ``_render_frame_tiled`` runs K1 and
-  K2 over every tile of both layers (``raster_pallas.gbuffers_tall``), the
-  atlas, the shadow maps' PCF factor (``shadows.make_shadow_factor``),
-  ``lighting.shade`` per layer and the compose;
+  cannot run inside a kernel's light loop): ``_render_frame_tiled`` runs
+  K1 and K2 over every tile of both layers (``raster_pallas.gbuffers_tall``),
+  then ``deferred_shade`` (the atlas, the shadow maps' PCF factor and
+  Blinn-Phong of both layers in one kernel; with a callback, its plain
+  version: ``shadows.make_shadow_factor``'s place taken by the callback,
+  ``lighting.shade`` per layer) and the compose;
 * the golden path (``backend="jnp"``): the image-layout raster and G-buffer
   resolve of ``raster_jnp.py`` and ``lighting.shade`` per layer, with the
   same systems semantics.
@@ -28,8 +30,8 @@ In a traced program (``profiling.mark``) a frame's stages are spans:
 ``render.geometry`` (``frame_inputs``), ``render.raster`` (binning, the
 candidate rows, K1), ``render.resolve`` (K2 with the texture override),
 ``render.shade`` (the PCF factor tiles, light lists, K3 and custom
-shading; on the non-fused path the atlas, the shadow factor and
-``lighting.shade``) and ``render.compose``; and the frame keeps two of its
+shading; on the non-fused path ``deferred_shade`` and custom shading)
+and ``render.compose``; and the frame keeps two of its
 counters, ``triangle_budget_dropped`` and ``tile_candidate_dropped``
 (``profiling.count``).
 """
@@ -43,14 +45,14 @@ import numpy as np
 import torch
 
 from render_engine_tpu_torch.math import transforms as T
+from render_engine_tpu_torch.render import deferred_shade as DS
 from render_engine_tpu_torch.render import lighting as L
 from render_engine_tpu_torch.render import raster_pallas as RP
 from render_engine_tpu_torch.render import shadows as SHD
 from render_engine_tpu_torch.render import skybox as SB
 from render_engine_tpu_torch.render.geometry import (build_triangle_batch,
                                                      perturb_normal,
-                                                     to_screen,
-                                                     triangle_tangents)
+                                                     to_screen)
 from render_engine_tpu_torch.render.raster_jnp import (
     RasterConfig, rasterize_depth_winner, resolve_gbuffer)
 from render_engine_tpu_torch.render.shade_pallas import (fused_shade,
@@ -287,11 +289,13 @@ def _render_frame_tiled(world, camera, bank, settings, *, batch, lights,
                         shadow_factor, systems, draw_ctx) -> torch.Tensor:
     """The non-fused tiled path: the G-buffers and shading planes of both
     layers in the tall tile layout (``raster_pallas.gbuffers_tall``), the
-    atlas, ``lighting.shade`` per layer (``shadow_factor`` on the opaque
-    one: the callback given, else the PCF factor of ``shadow_state``'s
-    maps), custom shading, then one untile of what the compose needs. The
-    tile budgets of the fused path (shadow, texture, light lists) do not
-    apply: every tile is shaded, textured and shadowed."""
+    atlas, the shadow factor and Blinn-Phong of both layers packed for the
+    compose (``deferred_shade``: the kernel, with the PCF factor of
+    ``shadow_state``'s maps; with a ``shadow_factor`` callback given, the
+    plain version with it), custom shading, then one untile of what the
+    compose needs. The tile budgets of the fused path (shadow, texture,
+    light lists) do not apply: every tile is shaded, textured and
+    shadowed."""
     from render_engine_tpu_torch.render import render_system as RS
 
     cfg = settings.raster
@@ -303,72 +307,29 @@ def _render_frame_tiled(world, camera, bank, settings, *, batch, lights,
         batch, bank, h, w, cfg, T.inv44(camera.proj_view()),
         ent_attrs=ent_attrs)
     P.mark("render.shade")
-    if atlas is not None:
-        gbuf = _texture_gbuffer(gbuf, extras, atlas, bank, batch)
-        t_gbuf = _texture_gbuffer(t_gbuf, t_extras, atlas, bank, batch)
-    if shadow_factor is None and shadow_state is not None:
-        shadow_factor = SHD.make_shadow_factor(
-            shadow_state, world,
-            {"dir": lights.dir_entity, "spot": lights.sp_entity,
-             "point": lights.pt_entity})
-    zeros = torch.zeros(gbuf.position.shape, device=batch.xy.device)
-
-    def shade(g, ex, factor):
-        return L.shade(g, lights, bank, camera.position, background=zeros,
-                       shadow_factor=factor, emissive_image=ex["emissive"],
-                       specular_image=ex["specular"],
-                       shininess_image=ex.get("shininess"))
-
-    color = shade(gbuf, extras, shadow_factor)
-    # the transparent layer without shadow lookups, as the reference draws
-    t_lit = shade(t_gbuf, t_extras, None)
-    if systems is not None and systems.has_shade_callbacks():
-        color = RS.apply_custom_shading(color, gbuf, gbuf.tri_id, batch,
-                                        world, camera, lights, systems,
-                                        draw_ctx)
-        t_lit = RS.apply_custom_shading(t_lit, t_gbuf, t_gbuf.tri_id, batch,
-                                        world, camera, lights, systems,
-                                        draw_ctx)
+    shades = systems is not None and systems.has_shade_callbacks()
+    args = (gbuf, extras, t_gbuf, t_extras, lights, bank, camera.position)
+    if shadow_factor is None:
+        packed, textured = DS.deferred_shade(
+            *args, atlas=atlas, batch=batch, shadow_state=shadow_state,
+            gbuffer_planes=shades)
+    else:
+        packed, textured = DS.deferred_shade_reference(
+            *args, atlas=atlas, batch=batch, shadow_factor=shadow_factor,
+            gbuffer_planes=shades)
+    if shades:
+        # the shading functions read the textured G-buffers
+        gbuf, t_gbuf = textured
+        color = RS.apply_custom_shading(packed[..., 0:3], gbuf, gbuf.tri_id,
+                                        batch, world, camera, lights,
+                                        systems, draw_ctx)
+        t_lit = RS.apply_custom_shading(packed[..., 3:6], t_gbuf,
+                                        t_gbuf.tri_id, batch, world, camera,
+                                        lights, systems, draw_ctx)
+        packed = torch.cat([color, t_lit, packed[..., 6:]], dim=-1)
     P.mark("render.compose")
-    t_front = t_gbuf.covered() & (t_gbuf.depth <= gbuf.depth)
-    flags = gbuf.covered().to(torch.float32) + 2.0 * t_front.to(
-        torch.float32)
-    packed = torch.cat([color, t_lit, t_extras["alpha"][..., None],
-                        flags[..., None]], dim=-1)
     return compose(RP._untile_tall(packed, tiles_y, tiles_x, th, twd, h, w),
                    background)
-
-
-def _texture_gbuffer(g, ex, atlas, bank, batch):
-    """The atlas on a non-fused G-buffer: the albedo, the spec, emissive
-    and dissolve maps' red channel as multipliers of ``ex``'s planes (in
-    place), and the normal map, in the winner triangle's tangent frame."""
-    mat_safe = g.material.clamp(0, bank.mat_textures.shape[0] - 1).long()
-    layer = bank.mat_texture[mat_safe]
-
-    def multiplier(table):
-        lay = table[mat_safe]
-        red = sample_atlas(atlas, lay, ex["uv"])[..., 0]
-        return torch.where(lay >= 0, red, 1.0)
-
-    if bank.has_specular_maps():
-        ex["specular"] = ex["specular"] * multiplier(bank.mat_texture_spec)
-    if bank.has_emissive_maps():
-        ex["emissive"] = ex["emissive"] * multiplier(bank.mat_texture_emis)
-    if bank.has_dissolve_maps():
-        ex["alpha"] = ex["alpha"] * multiplier(bank.mat_texture_diss)
-    normal = g.normal
-    if bank.has_normal_maps():
-        nlayer = bank.mat_texture_norm[mat_safe]
-        tri = g.tri_id.clamp(0, batch.budget - 1).long()
-        tan, handed = triangle_tangents(batch)
-        pert = perturb_normal(g.normal, tan[tri], handed[tri],
-                              sample_atlas(atlas, nlayer, ex["uv"]))
-        normal = torch.where((nlayer >= 0)[..., None], pert, g.normal)
-    return dataclasses.replace(
-        g, normal=normal,
-        albedo=torch.where((layer >= 0)[..., None],
-                           sample_atlas(atlas, layer, ex["uv"]), g.albedo))
 
 
 def _texture_override(res, atlas, tiles_x, th, twd, tids=None,

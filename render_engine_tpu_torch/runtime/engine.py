@@ -84,6 +84,7 @@ from render_engine_tpu_torch.logic.types import (NUM_KEYS, PACKED_INPUT_LEN,
 from render_engine_tpu_torch.math import transforms as T
 from render_engine_tpu_torch.math.camera import Camera, CameraBuilder
 from render_engine_tpu_torch.models.bank import ModelBank, ModelBankBuilder
+from render_engine_tpu_torch.render import deferred_shade as DS
 from render_engine_tpu_torch.render import lighting as LG
 from render_engine_tpu_torch.render import raster_pallas as RP
 from render_engine_tpu_torch.render import shade_pallas as SP
@@ -302,6 +303,12 @@ class Engine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine: no CUDA device; pass device='cpu' "
                                "to run on the CPU")
+        if self.device.type == "cuda":
+            # the default route's shading kernel reads at most so many
+            # shadow slots and light rows: refuse more now, not at the
+            # first frame
+            DS.check_reach(config.render, config.shadow_slots
+                           if config.enable_shadows else 0)
         self.world_config = W.WorldConfig(
             capacity=config.capacity, world_min=config.world_min,
             world_length=config.world_length,

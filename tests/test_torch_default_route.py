@@ -8,10 +8,21 @@ and the Engine's programs on that route.
   fused_shading=False`` frame (interpret mode, its shadow raster patched to
   the Pallas path as tests/test_torch_nonfused.py does): the frame scene of
   tests/test_torch_frame.py, its "featured" variant (every texture role),
-  the point light's shadow maps of tests/test_torch_shadow_frame.py, and
-  the textured scene 200 pixels wide (a partial last tile column).
+  the point light's shadow maps of tests/test_torch_shadow_frame.py, the
+  textured scene 200 pixels wide (a partial last tile column), the "lit"
+  scene of tests/deferred_scenes.py (textures with spec and normal maps
+  under six shadow slots: a directional light's map, a spot light's and
+  four cube faces of a point light; light tables with dead rows of every
+  kind) at ``pcf_scale`` 1 and 3, 32 and 44 rows high, so that the PCF
+  blocks cross tile rows, and the featured scene with a fragment-shading
+  system (the shading stage hands it the textured G-buffers).
   Tolerance: max abs diff <= 2/255 and at most 0.1% of the u8 values
-  differing, as the fused frame is held.
+  differing, as the fused frame is held; the lit scene every channel
+  within 1e-3 instead. Its eleven live lights, some a few units from the
+  surfaces, carry the G-buffers' position noise (1e-5 relative against
+  JAX, near 64) into differences up to about 2.3e-4, which turn about
+  0.1% of the u8 values over a rounding step; a channel off by 1e-3 or
+  more, as a PCF tap, a texel or a light row of its own would give, fails.
 * The default route with a ``shadow_state`` ``torch.equal`` to the frame
   with the callback the golden path builds from it (the route before this
   setting existed); ``backend="pallas"`` ``torch.equal`` to ``"auto"`` on
@@ -39,28 +50,37 @@ from render_engine_tpu.logic.types import InputState as JInput
 from render_engine_tpu.math.camera import CameraBuilder as JCameraBuilder
 from render_engine_tpu.render import frame as FJ
 from render_engine_tpu.render import raster_pallas as RPJ
+from render_engine_tpu.render import render_system as RSJ
+from render_engine_tpu.render.raster_jnp import RasterConfig as RCJ
 from render_engine_tpu.runtime.engine import Engine as JEngine
 from render_engine_tpu_torch.demo import space_scene as TS
 from render_engine_tpu_torch.logic.types import InputState as TInput
 from render_engine_tpu_torch.render import frame as FT
 from render_engine_tpu_torch.render import raster_pallas as RPT
+from render_engine_tpu_torch.render import render_system as RST
 from render_engine_tpu_torch.render import shade_pallas as SPT
+from render_engine_tpu_torch.render.raster_jnp import RasterConfig as RCT
 from render_engine_tpu_torch.runtime.config import EngineConfig
 from render_engine_tpu_torch.runtime.history import HistoryLog
 from render_engine_tpu_torch.runtime.replay import Player
 from render_engine_tpu_torch.utils.hashing import world_hash
 
+import deferred_scenes as DSC
 import test_torch_partial_tiles as TPT
+import test_torch_render_systems as TRS
 from host_traffic import no_host_traffic
-from test_torch_frame import JAX_PK, TORCH_PK, build
+from test_torch_frame import JAX_PK, RASTER, TORCH_PK, build
 from test_torch_nonfused import pallas_shadows, shadowed  # noqa: F401
 from test_torch_nonfused import (assert_images_close, scene, settings,
                                  shadows_of)
 from test_torch_programs import SMALL, _columns, _inputs, _kept
-from test_torch_shadows import assert_state_close
+from test_torch_shadows import JAX, TORCH, assert_state_close
 from torch_threads import one_torch_thread  # noqa: F401
 
 SCENES = ["plain", "featured"]
+# the lit scene's cases: pcf_scale, width, height, extra point lights
+LIT = {"k1-128x32": (1, 128, 32, 7), "k3-128x32": (3, 128, 32, 7),
+       "k3-200x44": (3, 200, 44, 2)}
 # frames 0 and 3 render maps into slots 0 and 1, 1 and 2 skip; frame 2
 # fires the mine spawner
 DTS = (1 / 60, 1 / 30, 4.5, 1 / 60)
@@ -134,6 +154,78 @@ def test_default_frame_on_a_partial_tile():
     img_t = FT.render_frame(wt, ct, bt, default(st), atlas=at)
     TPT.assert_images_close(img_t, img_j, width, height)
     assert (img_t[:, 128:] > 0.05).any()
+
+
+@pytest.fixture(scope="module", params=list(LIT))
+def lit(request):
+    """The lit scene in both packages with its six shadow slots, each
+    package's maps rendered by itself; ten point-light rows (the shadowed
+    head of four and a chunk of six)."""
+    k, width, height, extra = LIT[request.param]
+    mp = pytest.MonkeyPatch()
+    mp.setattr(FJ, "pick_rasterizer",
+               lambda backend="auto": RPJ.rasterize_depth_winner_pallas)
+    try:
+        out = {}
+        for name, pk, ns in (("t", TORCH_PK, TORCH), ("j", JAX_PK, JAX)):
+            w, bank, cam, atlas = DSC.lit(pk, width / height, extra)
+            sh = ns.SH.create_shadow_state(resolution=64,
+                                           budget=DSC.LIT_SLOTS,
+                                           pcf_scale=k)
+            for _ in range(DSC.LIT_SLOTS):
+                sh = ns.render(sh, w, cam, bank, max_tris=256,
+                               raster_cfg=ns.RC(**RASTER))
+            out[name] = (w, bank, cam, atlas, sh)
+    finally:
+        mp.undo()
+    sj = FJ.RenderSettings(width=width, height=height, max_tris=256,
+                           backend="pallas", fused_shading=False,
+                           raster=RCJ(chunk=4, **RASTER), max_point_lights=10)
+    st = FT.RenderSettings(width=width, height=height, max_tris=256,
+                           fused_shading=False, raster=RCT(**RASTER),
+                           max_point_lights=10)
+    return out, sj, st
+
+
+def test_lit_default_frame_matches_reference(lit, counted):
+    out, sj, st = lit
+    wt, bt, ct, at, sht = out["t"]
+    wj, bj, cj, aj, shj = out["j"]
+    assert sht.slot_entity.tolist() == [0, 1, 2, 2, 2, 2]
+    assert np.asarray(shj.slot_entity).tolist() == [0, 1, 2, 2, 2, 2]
+    img_t = FT.render_frame(wt, ct, bt, st, atlas=at, shadow_state=sht)
+    assert len(counted) == 2
+    img_j = np.asarray(FJ.render_frame(wj, cj, bj, sj, atlas=aj,
+                                       shadow_state=shj))
+    assert tuple(img_t.shape) == img_j.shape
+    diff = np.abs(img_t.numpy() - img_j)
+    assert diff.max() <= 1e-3, diff.max()
+    # the maps shade the frame
+    bare = FT.render_frame(wt, ct, bt, st, atlas=at)
+    assert (img_t != bare).any(dim=-1).double().mean() > 0.05
+
+
+def test_custom_shading_default_frame_matches_reference(counted):
+    """The featured scene with a fragment-shading system on its cubes:
+    the stage textures the G-buffers the function reads."""
+    sj, st = settings()
+
+    def systems(rs, bank, shade):
+        return rs.compile_systems((
+            rs.RenderSystemBuilder("n").with_models(0)
+            .write_uniform("tone", 0.8).with_fragment_shading(shade).build(),
+            rs.RenderSystemBuilder("s").with_models(1, 2).build()), bank)
+
+    wj, bj, cj, aj = scene(JAX_PK, "featured")
+    wt, bt, ct, at = scene(TORCH_PK, "featured")
+    sys_t = systems(RST, bt, TRS.fancy)
+    img_t = FT.render_frame(wt, ct, bt, default(st), atlas=at, systems=sys_t)
+    assert len(counted) == 2
+    assert_images_close(img_t, FJ.render_frame(
+        wj, cj, bj, sj, atlas=aj, systems=systems(RSJ, bj, TRS.fancy_jnp)))
+    # the function shades the cubes' pixels
+    plain = FT.render_frame(wt, ct, bt, default(st), atlas=at)
+    assert (img_t != plain).any(dim=-1).double().mean() > 0.01
 
 
 def test_default_frame_equals_the_callback_route(shadowed):

@@ -49,6 +49,7 @@ from render_engine_tpu_torch.render import shadows as SHT
 from render_engine_tpu_torch.render.raster_jnp import RasterConfig as RCT
 
 import test_torch_partial_tiles as TPT
+from deferred_scenes import featured
 import test_torch_render_systems as TRS
 from test_torch_frame import H, JAX_PK, RASTER, TORCH_PK, WIDTH, build
 from test_torch_shadow_frame import frame_scene
@@ -63,50 +64,6 @@ def pallas_shadows(monkeypatch):
     monkeypatch.setattr(FJ, "pick_rasterizer",
                         lambda backend="auto":
                         RPJ.rasterize_depth_winner_pallas)
-
-
-def featured(pk):
-    """The frame scene with every texture role (see the module
-    docstring), made from the same numpy images in either package."""
-    P, MB, W, R, K, CB, TX = pk
-    rng = np.random.default_rng(3)
-    ab = TX.TextureAtlasBuilder(layer_size=32)
-    albedo = ab.add_checkerboard(a=(1.0, 0.8, 0.2), b=(0.1, 0.2, 0.9),
-                                 cells=4)
-    spec = ab.add_image(rng.uniform(0, 1, (16, 16, 3)).astype(np.float32))
-    emis = ab.add_image(rng.uniform(0, 1, (16, 16, 3)).astype(np.float32))
-    tilt = ab.add_image(np.broadcast_to(np.float32([0.75, 0.45, 0.9]),
-                                        (16, 16, 3)).copy())
-    diss = ab.add_image(rng.uniform(0.2, 1, (8, 8, 3)).astype(np.float32))
-    atlas = ab.finalize()
-    bb = MB()
-    red = bb.add_material(albedo=(1.0, 0.1, 0.1), texture=albedo,
-                          specular=1.5, texture_specular=spec,
-                          texture_normal=tilt, shininess=16.0)
-    glow = bb.add_material(albedo=(1.0, 0.9, 0.6), emissive=4.0,
-                           texture_emissive=emis)
-    glass = bb.add_material(albedo=(0.2, 0.9, 0.4), alpha=0.4,
-                            texture_dissolve=diss, shininess=128.0)
-    cube = bb.add_model("cube", P.cube(1.5), material=red)
-    star = bb.add_model("star", P.uv_sphere(0.7, 6, 8), material=glow)
-    pane = bb.add_model("pane", P.quad(2.0), material=glass)
-    bank = bb.finalize()
-    w = W.create_world(W.WorldConfig(capacity=16, world_length=128.0,
-                                     section_length=16.0))
-    w, _ = W.spawn_host(
-        w, 4,
-        position=np.array([[62.0, 64.0, 58.0], [66.0, 64.0, 58.0],
-                           [64.0, 65.5, 57.0], [64.0, 64.0, 60.5]],
-                          np.float32),
-        model_id=np.array([cube, star, cube, pane], np.int32),
-        sortable=np.array([0, R.SORTABLE_POINT, 0, 0], np.int32),
-        light_diffuse=np.array([[0, 0, 0], [1.0, 0.9, 0.8], [0, 0, 0],
-                                [0, 0, 0]], np.float32),
-        light_atten=np.array([[0, 0], [0.05, 0.01], [0, 0], [0, 0]],
-                             np.float32))
-    w = K.refresh_transforms(w, bank.aabb_min, bank.aabb_max, w.alive)
-    _, _, cam, _ = build(pk, False)
-    return w, bank, cam, atlas
 
 
 def scene(pk, name):
