@@ -21,8 +21,7 @@ import time
 import numpy as np
 import torch
 
-from port_bench import check, manifest, scene
-from port_bench.reference.frames import state_of
+from port_bench import check, manifest
 from port_bench.traffic import Traffic
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "render_engine_tpu")
@@ -44,7 +43,9 @@ SETTLE_BACK = 0.04  # how near the set-up's level a re-settled card reads
 # machines): a steady card reads below this only when settled
 SETTLED_BELOW_MS = 0.28
 SETTLE_MAX_S = 120.0
-RESETTLE_MAX_S = 30.0  # the traced run's settling again, which may fail
+# the traced run's settling again before each of its three timed parts,
+# which may fail: a card has been seen to run slow for up to 37 s of load
+RESETTLE_MAX_S = 60.0
 
 
 def log(msg: str):
@@ -81,16 +82,22 @@ def sample_frames(seed: int, est_frames: int) -> list[int]:
 
 
 class Program:
-    """The program's engine of a cell and its inputs."""
+    """The program's engine of a cell (``programs/<program>.py``'s
+    ``build``), its inputs, and how its states are read for the check
+    (``state_of``: the reference file's, or ``reference/frames.py``'s)."""
 
     def __init__(self, cfg, traffic: Traffic, seed, device, overrides=None):
         from render_engine_tpu_torch.logic.types import InputState
 
         self._inputs = InputState
         self.traffic, self.device = traffic, torch.device(device)
-        self.eng = scene.build(cfg, seed, device, overrides)
+        self.eng = manifest.program(cfg).build(cfg, seed, device, overrides)
+        self.state_of = manifest.state_of(cfg)
         self.i = 0  # the next traffic frame
         self._ready: dict = {}
+
+    def state(self) -> dict:
+        return self.state_of(self.eng)
 
     def _args(self, i: int):
         fr = self.traffic.frame(i)
@@ -126,7 +133,7 @@ def warm_up(prog: Program, quiet_frames: int):
         sync(prog.device)
         dt = time.perf_counter() - t0
         if prog.i <= START_FRAMES:
-            start.append(check.Checked(prog.i - 1, None, state_of(eng), img))
+            start.append(check.Checked(prog.i - 1, None, prog.state(), img))
         if eng.captured_programs == before:
             quiet += 1
             times.append(dt)
@@ -210,7 +217,7 @@ def window(prog: Program, seconds: float, checked: list[int]):
     run's first frame. Returns the window's start and end, the per-frame
     host seconds (call to end of its synchronize), the dispatch seconds
     (call to return) and the records."""
-    eng, dev = prog.eng, prog.device
+    dev = prog.device
     i0 = prog.i
     snap_at = set(checked) | {k + 1 for k in checked}
     follow = {i - i0 for i in FOLLOW_AT if i >= i0}
@@ -221,7 +228,7 @@ def window(prog: Program, seconds: float, checked: list[int]):
     n = 0
     while time.perf_counter() - t_start < seconds:
         if n in snap_at:
-            states[n] = state_of(eng)
+            states[n] = prog.state()
         a = time.perf_counter()
         img = prog.frame()
         b = time.perf_counter()
@@ -232,11 +239,11 @@ def window(prog: Program, seconds: float, checked: list[int]):
         if n in checked or n in follow_img:
             images[n] = img
         if n in follow:
-            posts[n] = state_of(eng)
+            posts[n] = prog.state()
         n += 1
     t_end = time.perf_counter()
     if n in snap_at:
-        states[n] = state_of(eng)
+        states[n] = prog.state()
     recs = [check.Checked(i0 + k, states[k], states[k + 1], images.get(k))
             for k in checked if k + 1 <= n]
     recs += [check.Checked(i0 + k, None, post, images.get(k))
@@ -271,7 +278,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_proc: float,
     prog = program_cls(cfg, traffic, seed, device, overrides)
     eng = prog.eng
     t_built = time.perf_counter()
-    program_scene = state_of(eng)["world"]
+    program_scene = prog.state()["world"]
     shadows = eng.shadow_state is not None and traffic.renders
     cycle = (eng.config.shadow_update_interval * eng.config.shadow_slots
              if shadows else 1)
@@ -338,9 +345,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_proc: float,
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    ctl = None
-    if control:
-        from port_bench.reference.frames import Control as ctl
+    ctl = manifest.reference(cfg).Control if control else None
     t_ref = time.perf_counter()
     rd, per_frame, rd_ctl = check.run_reference(
         cfg, seed, device, traffic, program_scene, records, overrides, ctl)

@@ -38,7 +38,7 @@ import math
 
 import torch
 
-from port_bench.reference.frames import Reference
+from port_bench import manifest
 
 NUMBERS = ("world_err", "shadow_err", "image_err")
 FOLLOW = 250
@@ -169,11 +169,13 @@ def run_reference(cfg, seed, device, traffic, program_scene, records,
                   overrides=None, control_cls=None):
     """The readings of the program's set-up world ``program_scene`` and
     its ``records`` (``Checked``) against the reference, with the
-    per-frame values. With ``control_cls`` (``reference.frames.Control``)
-    also the control's readings: its own scene and frames, computed as
-    the reference's are, in the program's place."""
+    per-frame values. The reference is the ``Reference`` of the
+    configuration's program (``reference/programs/<program>.py``). With
+    ``control_cls`` (that file's ``Control``) also the control's readings:
+    its own scene and frames, computed as the reference's are, in the
+    program's place."""
     renders = traffic.renders
-    ref = Reference(cfg, seed, device, overrides)
+    ref = manifest.reference(cfg).Reference(cfg, seed, device, overrides)
     ctl = control_cls(cfg, seed, device, overrides) if control_cls else None
     rd, rd_ctl, per_frame = Readings(), Readings(), []
     ref_world = ref.state()["world"]

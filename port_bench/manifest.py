@@ -3,16 +3,25 @@
 A cell (``workloads`` entry) names a configuration and a traffic mix; the
 configuration's file is the one ``configs`` gives it, a traffic mix ``t``
 is ``traffic/<t>.json`` and a per-layer metric ``m`` is read by
-``metrics/<m>.py``. Adding one is adding files and entries."""
+``metrics/<m>.py``. A configuration file's ``"program"`` ``p`` (``"space"``
+where it has none) is built by ``programs/<p>.py`` and checked by
+``reference/programs/<p>.py``; every ``kernels/<kind>.py`` is a kernel row
+of the traced run. Adding one is adding files and entries."""
 
 from __future__ import annotations
 
+import glob
+import importlib
 import importlib.util
 import json
 import os
+import re
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+DEFAULT_PROGRAM = "space"
+# a program's or a kernel kind's name: a module of this package
+MODULE_NAME = re.compile(r"^[A-Za-z_][A-Za-z0-9_]{0,63}$")
 
 
 def load(root: str = ROOT) -> dict:
@@ -69,3 +78,37 @@ def cell_metrics(bench: dict, cell_name: str, trace: bool) -> list[dict]:
     return [m for m in bench["per_layer"]
             if cell_name in m.get("workloads", [cell_name])
             and m["moves"] in names]
+
+
+def _module(package: str, name: str):
+    if not MODULE_NAME.match(name):
+        raise ValueError(f"{name!r} is no module name of {package}")
+    return importlib.import_module(f"port_bench.{package}.{name}")
+
+
+def program_name(cfg: dict) -> str:
+    return cfg.get("program", DEFAULT_PROGRAM)
+
+
+def program(cfg: dict):
+    """``programs/<program>.py`` of the configuration ``cfg``."""
+    return _module("programs", program_name(cfg))
+
+
+def reference(cfg: dict):
+    """``reference/programs/<program>.py`` of the configuration ``cfg``."""
+    return _module("reference.programs", program_name(cfg))
+
+
+def state_of(cfg: dict):
+    """The reference file's ``state_of``, or ``reference/frames.py``'s."""
+    from port_bench.reference import frames
+
+    return getattr(reference(cfg), "state_of", frames.state_of)
+
+
+def kernel_kinds() -> dict:
+    """Every kernel row: kind -> ``kernels/<kind>.py``, by name."""
+    names = sorted(os.path.basename(p)[:-3] for p in
+                   glob.glob(os.path.join(HERE, "kernels", "*.py")))
+    return {n: _module("kernels", n) for n in names if n != "__init__"}

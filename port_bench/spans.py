@@ -13,9 +13,8 @@ read under a record's ``"spans"`` key: the phase's calls (``frames``,
 frame seconds (``host_s``). Tracing is off again afterwards. An engine
 without ``set_tracing`` gives None.
 
-The traced run's record (``tracing.measure``) does not call it yet:
-``tracing.py`` is one of the benchmark's files that this addition leaves
-as they are. ``scripts/measure_spans_torch.py`` runs it on a cell alone."""
+The traced run's record (``tracing.measure``) holds it under ``"spans"``;
+``scripts/measure_spans_torch.py`` also runs it on a cell alone."""
 
 from __future__ import annotations
 

@@ -107,9 +107,15 @@ def test_moves_names_an_end_to_end_metric_of_each_cell(m):
 def test_cell_files_found_by_name(w):
     cfg = manifest.config(BENCH, w["config"])
     assert cfg["name"] == w["config"]
-    for k in ("space_config", "scene", "fused_shading", "record_history",
-              "limits"):
-        assert k in cfg
+    assert "limits" in cfg
+    assert callable(manifest.program(cfg).build)
+    ref = manifest.reference(cfg)
+    assert issubclass(ref.Control, ref.Reference)
+    assert callable(manifest.state_of(cfg))
+    if manifest.program_name(cfg) == "space":
+        for k in ("space_config", "scene", "fused_shading",
+                  "record_history"):
+            assert k in cfg
     assert os.path.isfile(manifest.traffic_path(w["traffic"]))
     assert manifest.traffic(w["traffic"])["name"] == w["traffic"]
     names = {m["name"] for m in manifest.cell_metrics(BENCH, w["name"], False)}
@@ -132,3 +138,39 @@ def test_config_files_under_paths_and_distinct():
 def test_every_config_is_used():
     used = {w["config"] for w in BENCH["workloads"]}
     assert used == {c["name"] for c in BENCH["configs"]}
+
+
+def test_a_config_without_a_program_is_the_space_program():
+    """A configuration file without ``"program"`` (each of today's) is
+    built by ``programs/space.py`` and checked by
+    ``reference/programs/space.py``, with ``reference/frames.py``'s
+    ``state_of``."""
+    from port_bench.programs import space
+    from port_bench.reference import frames
+    from port_bench.reference.programs import space as space_ref
+
+    for c in BENCH["configs"]:
+        cfg = manifest.config(BENCH, c["name"])
+        assert "program" not in cfg
+        assert manifest.program_name(cfg) == "space"
+        assert manifest.program(cfg) is space
+        assert manifest.reference(cfg) is space_ref
+        assert manifest.state_of(cfg) is frames.state_of
+    assert manifest.program({"program": "space"}) is space
+
+
+@pytest.mark.parametrize("name", ["no_such_program", "../bench", "a.b", ""])
+def test_a_program_is_found_by_its_file_alone(name):
+    with pytest.raises((ModuleNotFoundError, ValueError)):
+        manifest.program({"program": name})
+    with pytest.raises((ModuleNotFoundError, ValueError)):
+        manifest.reference({"program": name})
+
+
+def test_kernel_rows_found_by_name():
+    kinds = manifest.kernel_kinds()
+    assert {"k1", "k1_one_pass", "k2", "k3", "deferred_shade"} <= set(kinds)
+    for kind, row in kinds.items():
+        assert NAME.match(kind)
+        assert ":" in row.WRAPS and callable(row.work)
+        assert row.EXCLUDE is None or isinstance(row.EXCLUDE, str)

@@ -20,7 +20,7 @@ SMALL = dict(width=128, height=96, capacity=128, num_asteroids=20,
 # asteroids in the wide shell, some beyond the camera's draw distance, so
 # that which of them take logic rests on the frustum's planes
 SHELL = dict(SMALL, capacity=4096, num_asteroids=4000)
-SECONDS = 2.0
+SECONDS = 5.0  # windows of a few frames of about 1 s on a CPU
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = manifest.ROOT
 CELLS = [w["name"] for w in manifest.load()["workloads"]]
@@ -228,18 +228,19 @@ def test_a_traced_rehearsal_reports_the_cells_per_layer_metrics(
     """The traced run on the CPU (host clocks in place of CUDA events, no
     device rows): every per-layer metric that a CPU run can read is there,
     the device ones are left out, and the result stays a contract line."""
-    from port_bench import tracing
+    from port_bench import spans, tracing
 
     for name, n in (("PROFILE_FRAMES", 3), ("STEP_CALLS", 3),
                     ("RENDER_CALLS", 2), ("SHADOW_UPDATES", 2)):
         monkeypatch.setattr(tracing, name, n)
+    monkeypatch.setattr(spans, "SPAN_FRAMES", 3)
     torch.set_num_threads(2)
     res, _ = bench.run(cell, 6, SECONDS, True, time.perf_counter(),
                        device="cpu", overrides=SMALL)
     wanted = {m["name"] for m in manifest.cell_metrics(manifest.load(), cell,
                                                        True)}
-    device_only = {"kernels.hand_roofline", "device.idle_share",
-                   "device.rows_per_frame"}
+    device_only = {"kernels.hand_roofline", "kernels.deferred_shade_roofline",
+                   "device.idle_share", "device.rows_per_frame"}
     assert set(res["metrics"]) == wanted - device_only
     assert all(v["value"] > 0 for k, v in res["metrics"].items()
                if k != "engine.capture_s")

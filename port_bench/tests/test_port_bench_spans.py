@@ -58,8 +58,8 @@ WANT = {"step.span_ms": 2.3, "shadows.span_ms": 1.0, "render.span_ms": 3.8,
 def test_reader_on_a_hand_built_record(name):
     read = manifest.metric_reader(name)
     assert read(RECORD) == pytest.approx(WANT[name])
-    # nothing to read: a record without spans (the traced run's today),
-    # an engine without tracing, a phase with no such span
+    # nothing to read: a record without spans, an engine without
+    # tracing, a phase with no such span
     assert read({}) is None
     assert read({"spans": None}) is None
     assert read({"spans": {"frames": [{"unread": True}]}}) is None
@@ -130,6 +130,40 @@ def test_the_span_script_on_the_cpu(monkeypatch):
     assert step["read"] == 2 * 2  # on the CPU every call is read back
     assert step["step_span_ms"] <= step["first_to_tail_ms"] + 1e-9
     assert not prog.eng._tracing
+
+
+@pytest.mark.parametrize("cell", ["space-1080p-10k.coast",
+                                  "space-1080p-10k.step"])
+def test_the_traced_record_carries_the_span_phase(cell, monkeypatch):
+    """``tracing.measure`` on a small CPU engine ends with the span phase:
+    the record's ``spans`` holds the phase's calls and the counters, each
+    of the six readers reads what the cell runs, and tracing is off
+    again."""
+    from port_bench import tracing
+
+    for name, n in (("PROFILE_FRAMES", 2), ("STEP_CALLS", 2),
+                    ("RENDER_CALLS", 1), ("SHADOW_UPDATES", 1)):
+        monkeypatch.setattr(tracing, name, n)
+    monkeypatch.setattr(spans, "SPAN_FRAMES", 3)
+    prog = _small(cell)
+    settles = []
+    rec = tracing.measure(prog, [0.001], "cpu",
+                          lambda: settles.append(1) or {"settled": True})
+    got = rec["spans"]
+    assert len(got["frames"]) == len(got["host_s"]) == 3
+    assert got["counters"]["frames"] >= 3 and got["counters"]["unread"] == 0
+    assert got["resettled"] is True
+    assert len(settles) == 3  # two timed parts and the span phase
+    assert rec["device"]["resettled"] == [True, True, True]
+    assert not prog.eng._tracing
+    renders = prog.traffic.renders
+    for m in spans.SPAN_METRICS:
+        v = manifest.metric_reader(m)(rec)
+        if renders or m in ("step.span_ms", "engine.launch_ms",
+                            "device.span_idle_share"):
+            assert v is not None, m
+        else:
+            assert v is None, m
 
 
 def test_an_engine_without_tracing_gives_nothing():

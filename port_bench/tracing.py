@@ -18,9 +18,15 @@ calls, and one stretch of frames under ``torch.profiler``.
 * ``profile``: ``PROFILE_FRAMES`` frames of the traffic, each followed by a
   synchronize as in the window, under the profiler: the device rows
   (kernels, copies, memsets), their union, the span by CUDA events around
-  the frames, the hand kernels' rows by kind and the bound of each kind
-  (``bounds.py`` on the arguments recorded in one eager run of each frame
-  program the cell captured);
+  the frames, the kernel rows by kind (``kernels/<kind>.py``: the
+  profiler's name, the port's wrapper and the work of a call) and the
+  bound of each kind (the kind's work on the arguments recorded in one
+  eager run of each frame program the cell captured, ``bounds.bound``),
+  each kind's share of its bound (``roofline_by_kind``) and the hand
+  kernels' share (``roofline_pct``: K1, K1 one-pass, K2 and K3 together);
+* ``spans``: the program's own spans and counters over ``spans.py``'s span
+  phase (``spans.program_spans``; None for a program without tracing),
+  run after the CUDA-event parts and before the profiled frames;
 * ``device`` (``busy_s``, ``window_s``) and ``breakdown`` for the result.
 
 Every loop's first calls, which capture their programs, run before the
@@ -28,12 +34,13 @@ card is settled again and its events are recorded."""
 
 from __future__ import annotations
 
+import importlib
 import sys
 import time
 
 import torch
 
-from port_bench import bounds
+from port_bench import bounds, manifest
 
 STEP_CALLS = 60
 RENDER_CALLS = 30
@@ -41,19 +48,20 @@ SHADOW_UPDATES = 10
 PROFILE_FRAMES = 30
 TOP = 10
 
-# the hand kernels by the profiler's names: (kind, part of the name,
-# part it must not hold)
-KERNEL_ROWS = (("k1_one_pass", "tile_raster_kernel<false>", None),
-               ("k1", "tile_raster_kernel", "<false>"),
-               ("k2", "resolve_kernel", None),
-               ("k3", "fused_shade_kernel", None))
+# the kinds ``kernels.hand_roofline`` sums over
+HAND_KINDS = ("k1", "k1_one_pass", "k2", "k3")
 
 
-def kernel_kind(name: str):
-    for kind, part, never in KERNEL_ROWS:
-        if part in name and (never is None or never not in name):
-            return kind
-    return None
+def kernel_kind(name: str, kinds: dict | None = None):
+    """The kind (``kernels/<kind>.py``) whose profiler name a device row's
+    ``name`` holds, without its excluded part; None for no kind. A name
+    that two kinds claim fails the run."""
+    kinds = manifest.kernel_kinds() if kinds is None else kinds
+    found = [k for k, m in kinds.items() if m.PROFILER_NAME in name
+             and (m.EXCLUDE is None or m.EXCLUDE not in name)]
+    if len(found) > 1:
+        raise RuntimeError(f"kernel rows {found} all claim {name!r}")
+    return found[0] if found else None
 
 
 def device_activity(rows) -> dict:
@@ -112,60 +120,58 @@ def _timed(device, calls: int, fn) -> float:
 
 
 class _Recorder:
-    """Wraps the port's three kernel wrappers for one eager run: each call's
-    bound (ms) by kind, from ``bounds.py``, then the call itself."""
+    """Wraps, for one eager run, each port function a kernel row names
+    (``WRAPS``): each call's bound (ms) by kind, from the kinds' ``work``,
+    then the call itself. A row whose function the port does not have
+    records nothing (its kernel is off the path)."""
 
-    def __init__(self):
-        from render_engine_tpu_torch.render import raster_pallas as RP
-        from render_engine_tpu_torch.render import shade_pallas as SP
-
+    def __init__(self, kinds: dict):
         self.bounds: dict = {}
-        self.saved = [(RP, "tile_raster"), (RP, "resolve_attributes_pallas"),
-                      (SP, "shade_tiles")]
-        self.fns = {name: getattr(mod, name) for mod, name in self.saved}
+        self.rows: dict = {}  # (module, function name) -> [(kind, work)]
+        for kind, row in kinds.items():
+            path, name = row.WRAPS.split(":")
+            try:
+                mod = importlib.import_module(path)
+            except ModuleNotFoundError:
+                continue
+            if hasattr(mod, name):
+                self.rows.setdefault((mod, name), []).append(
+                    (kind, row.work))
+        self.fns = {key: getattr(*key) for key in self.rows}
 
-    def _add(self, kind, work):
-        self.bounds.setdefault(kind, []).append(
-            bounds.bound(work["bytes"], work["ops"])[0])
+    def _wrap(self, key):
+        fn, rows = self.fns[key], self.rows[key]
+
+        def wrapped(*a, **kw):
+            for kind, work in rows:
+                w = work(*a, **kw)
+                if w is not None:
+                    self.bounds.setdefault(kind, []).append(
+                        bounds.bound(w["bytes"], w["ops"])[0])
+            return fn(*a, **kw)
+        return wrapped
 
     def __enter__(self):
-        fns = self.fns
-
-        def tile_raster(data, ids, counts, **kw):
-            self._add("k1" if kw["two_pass"] else "k1_one_pass",
-                      bounds.tile_raster_work(data, ids, counts, **kw))
-            return fns["tile_raster"](data, ids, counts, **kw)
-
-        def resolve(slot, rows, *a, **kw):
-            self._add("k2", bounds.resolve_work(slot, rows))
-            return fns["resolve_attributes_pallas"](slot, rows, *a, **kw)
-
-        def shade_tiles(*a, **kw):
-            self._add("k3", bounds.fused_shade_work(*a, **kw))
-            return fns["shade_tiles"](*a, **kw)
-
-        wrap = {"tile_raster": tile_raster,
-                "resolve_attributes_pallas": resolve,
-                "shade_tiles": shade_tiles}
-        for mod, name in self.saved:
-            setattr(mod, name, wrap[name])
+        for key in self.rows:
+            setattr(*key, self._wrap(key))
         return self
 
     def __exit__(self, *exc):
-        for mod, name in self.saved:
-            setattr(mod, name, self.fns[name])
+        for key, fn in self.fns.items():
+            setattr(*key, fn)
 
 
-def kernel_bounds(eng, inputs, dt) -> dict:
-    """The mean bound (ms) of each hand-kernel kind over one eager run of
-    each frame program the engine holds, on a state made from the engine's
+def kernel_bounds(eng, inputs, dt, kinds: dict | None = None) -> dict:
+    """The mean bound (ms) of each kernel kind over one eager run of each
+    frame program the engine holds, on a state made from the engine's
     public views (``Engine.world``, ``.camera``, ``.shadow_state``) and
     the frame's inputs ``inputs``, ``dt``."""
     from render_engine_tpu_torch.runtime.engine import ProgramState
 
     dev = eng.camera.serialize().device
     keys = [k for k in eng.captured_programs if k[0] == "frame"]
-    with _Recorder() as rec:
+    kinds = manifest.kernel_kinds() if kinds is None else kinds
+    with _Recorder(kinds) as rec:
         for key in keys:
             sh = eng.shadow_state
             camv = eng.camera.serialize().clone()
@@ -183,27 +189,44 @@ def kernel_bounds(eng, inputs, dt) -> dict:
     return {k: sum(v) / len(v) for k, v in rec.bounds.items()}
 
 
-def roofline_pct(kinds: dict, kernel_bounds_ms: dict) -> float:
-    """The summed bound over the summed device time of the hand kernels'
-    profiled launches (``kinds``: kind -> (launches, us)). The profiled
-    kinds and those the eager run recorded bounds for have to be the same
-    (a renamed kernel or wrapper fails the run rather than leave the
-    metric out)."""
+def _same_kinds(kinds: dict, kernel_bounds_ms: dict):
+    """The profiled kinds and those the eager run recorded bounds for have
+    to be the same (a renamed kernel or wrapper fails the run rather than
+    leave a metric out)."""
     if not kinds or set(kinds) != set(kernel_bounds_ms):
         raise RuntimeError(
-            f"hand kernels profiled {sorted(kinds)} but bounds recorded for "
+            f"kernels profiled {sorted(kinds)} but bounds recorded for "
             f"{sorted(kernel_bounds_ms)}")
+
+
+def _share(kinds: dict, kernel_bounds_ms: dict) -> float:
     bound_ms = sum(n * kernel_bounds_ms[k] for k, (n, _) in kinds.items())
     time_ms = sum(us for _, us in kinds.values()) / 1e3
     return 100.0 * bound_ms / time_ms
 
 
-def profile(prog, frames: int) -> dict:
+def roofline_pct(kinds: dict, kernel_bounds_ms: dict) -> float | None:
+    """The summed bound over the summed device time of the hand kernels'
+    profiled launches, K1, K1 one-pass, K2 and K3 (``kinds``: kind ->
+    (launches, us), every profiled kind); None where none of them ran."""
+    _same_kinds(kinds, kernel_bounds_ms)
+    hand = {k: v for k, v in kinds.items() if k in HAND_KINDS}
+    return _share(hand, kernel_bounds_ms) if hand else None
+
+
+def roofline_by_kind(kinds: dict, kernel_bounds_ms: dict) -> dict:
+    """Each profiled kind's bound over its device time, in %."""
+    _same_kinds(kinds, kernel_bounds_ms)
+    return {k: _share({k: v}, kernel_bounds_ms) for k, v in kinds.items()}
+
+
+def profile(prog, frames: int, kinds: dict | None = None) -> dict:
     """``frames`` traffic frames under the profiler (see the module
     docstring)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     dev = prog.device
+    kinds = manifest.kernel_kinds() if kinds is None else kinds
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
@@ -227,7 +250,7 @@ def profile(prog, frames: int) -> dict:
             dev_rows.append(t)
             us = t[1] - t[0]
             by_name[e.name] = by_name.get(e.name, 0.0) + us
-            kind = kernel_kind(e.name)
+            kind = kernel_kind(e.name, kinds)
             if kind is not None:
                 n, s = kern.get(kind, (0, 0.0))
                 kern[kind] = (n + 1, s + us)
@@ -297,13 +320,21 @@ def measure(prog, disp: list, device, settle=None) -> dict:
         rec["shadow_update_ms"] = _timed(
             dev, interval * SHADOW_UPDATES,
             eng.update_shadows) / SHADOW_UPDATES
+    t_spans = time.perf_counter()
+    rec["spans"] = span_phase(prog, settle)
+    if rec["spans"] is not None:
+        settles.append({"settled": rec["spans"]["resettled"]})
+    t_spans = time.perf_counter() - t_spans
     settles.append(settle())
-    prof = profile(prog, PROFILE_FRAMES)
+    kinds = manifest.kernel_kinds()
+    prof = profile(prog, PROFILE_FRAMES, kinds)
     if traffic.renders:
-        rec["kernel_bounds"] = kernel_bounds(eng, inputs, fr.dt)
+        rec["kernel_bounds"] = kernel_bounds(eng, inputs, fr.dt, kinds)
         if dev.type == "cuda":  # the CPU's profile holds no device rows
             prof["roofline_pct"] = roofline_pct(prof["kernels"],
                                                 rec["kernel_bounds"])
+            prof["roofline_by_kind"] = roofline_by_kind(
+                prof["kernels"], rec["kernel_bounds"])
     rec["profile"] = prof
     rec["device"] = {"busy_s": prof["busy_us"] / 1e6,
                      "window_s": prof["span_ms"] / 1e3,
@@ -314,5 +345,20 @@ def measure(prog, disp: list, device, settle=None) -> dict:
         "device_ops": [[n, us / 1e6] for n, us in prof["device_ops"]],
         "idle_gaps": [[n, us / 1e6] for n, us in prof["idle_gaps"]]}
     print(f"[port_bench] trace measurements took "
-          f"{time.perf_counter() - t0:.3f} s", file=sys.stderr)
+          f"{time.perf_counter() - t0:.3f} s, the span phase "
+          f"{t_spans:.3f} s of them", file=sys.stderr)
     return rec
+
+
+def span_phase(prog, settle):
+    """``spans.program_spans`` over ``spans.SPAN_FRAMES`` frames, then
+    frames until the programs without marks are captured again. It runs
+    before the profiled frames: after them, on an H100, the step span (the
+    first of the frame program) read 0.06 to 0.16 ms longer, where the
+    render and shadow spans did not move."""
+    from port_bench import spans
+
+    phase = spans.program_spans(prog, spans.SPAN_FRAMES, settle)
+    if phase is not None:
+        spans.quiet(prog, spans.cycle(prog) + 2)
+    return phase
