@@ -147,7 +147,12 @@ ENTITY_TYPES = (
 
 
 def build_scene(engine: Engine, num_asteroids: int = 40, seed: int = 42,
-                normal_maps: bool = True):
+                normal_maps: bool = True, material: dict | None = None):
+    """The scene into ``engine``, its asteroids drawn from ``seed``. The
+    render systems are the default pair, or with ``material`` (the four
+    uniforms of ``user_systems.MATERIAL``) the user's systems of
+    ``user_systems``: ``fog_rim`` on the lit one and a draw callback on
+    the light sources."""
     bb = engine.bank_builder
     star_mat = bb.add_material(albedo=(1.0, 0.85, 0.5), emissive=1.0)
     rock_mat = bb.add_material(albedo=(0.45, 0.38, 0.33))
@@ -258,6 +263,13 @@ def build_scene(engine: Engine, num_asteroids: int = 40, seed: int = 42,
 
     engine.set_skybox(SB.make_starfield(2400, device=engine.device))
 
+    if material is not None:
+        from render_engine_tpu_torch.demo.user_systems import (
+            user_render_systems)
+
+        engine.set_render_systems(lambda bank: user_render_systems(
+            bank, star_model, material))
+        return
     from render_engine_tpu_torch.prelude.default_render_system import (
         default_render_systems)
 

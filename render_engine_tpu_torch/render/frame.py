@@ -29,11 +29,12 @@ rows, skybox toggle), then takes one of three paths, as the JAX package's
 In a traced program (``profiling.mark``) a frame's stages are spans:
 ``render.geometry`` (``frame_inputs``), ``render.raster`` (binning, the
 candidate rows, K1), ``render.resolve`` (K2 with the texture override),
-``render.shade`` (the PCF factor tiles, light lists, K3 and custom
-shading; on the non-fused path ``deferred_shade`` and custom shading)
-and ``render.compose``; and the frame keeps two of its
-counters, ``triangle_budget_dropped`` and ``tile_candidate_dropped``
-(``profiling.count``).
+``render.shade`` (the PCF factor tiles, light lists and K3; on the
+non-fused path ``deferred_shade``), ``render.custom`` (custom shading,
+only where a system has a shading function) and ``render.compose``; and
+the frame keeps two of its counters, ``triangle_budget_dropped`` and
+``tile_candidate_dropped`` (``profiling.count``), and on the fused path
+with custom shading the three of ``CUSTOM_COUNTERS``.
 """
 
 from __future__ import annotations
@@ -66,6 +67,9 @@ from render_engine_tpu_torch.utils import consts
 # "auto" and "pallas": the tiled path through the kernels (their plain
 # versions on CPU tensors); "jnp": the golden image-layout path
 BACKENDS = ("auto", "pallas", "jnp")
+# the fused route's custom-shading counters (``_count_custom``)
+CUSTOM_COUNTERS = ("custom_tiles_resolved", "custom_tiles_owned",
+                   "custom_pixels")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,6 +322,7 @@ def _render_frame_tiled(world, camera, bank, settings, *, batch, lights,
             *args, atlas=atlas, batch=batch, shadow_factor=shadow_factor,
             gbuffer_planes=shades)
     if shades:
+        P.mark("render.custom")
         # the shading functions read the textured G-buffers
         gbuf, t_gbuf = textured
         color = RS.apply_custom_shading(packed[..., 0:3], gbuf, gbuf.tri_id,
@@ -580,6 +585,9 @@ def _fused_custom_shading(shaded, s, d, wn, rows, tri_sys, camera, lights,
             albedo=torch.where((layer >= 0)[..., None], tex, gbuf.albedo))
     covered = wn_t >= 0
     px_sys = tri_sys[wn_t.clamp(0, tri_sys.shape[0] - 1).long()]
+    if P.armed():
+        _count_custom(px_sys, covered, systems, px, py, nt, width,
+                      h_total - y_off)
     color = shaded[out_base:out_base + 3].permute(1, 2, 3, 0).reshape(
         nt * th, twd, 3)
     color = shade_systems_color(color, gbuf, px_sys, covered, camera, lights,
@@ -587,6 +595,25 @@ def _fused_custom_shading(shaded, s, d, wn, rows, tri_sys, camera, lights,
     shaded[out_base:out_base + 3] = color.reshape(nt, th, twd, 3).permute(
         3, 0, 1, 2)
     return shaded
+
+
+def _count_custom(px_sys, covered, systems, px, py, nt, width, rows):
+    """The custom-shading counters of one layer (``CUSTOM_COUNTERS``): the
+    ``nt`` tiles K2 resolved for the hook, the tiles holding a covered
+    pixel of a shading system, and those pixels, counting only pixels
+    inside the image (``width`` columns, ``rows`` rows from the first
+    tile's). A traced program adds the two layers' counts."""
+    dev = covered.device
+    owned = torch.zeros_like(covered)
+    for s, sys_ in enumerate(systems.src):
+        if sys_.shade is not None:
+            owned = owned | (px_sys == s)
+    owned = owned & covered & (px < width) & (py < rows)
+    P.count("custom_tiles_resolved",
+            torch.full((), nt, dtype=torch.int64, device=dev))
+    P.count("custom_tiles_owned",
+            owned.reshape(nt, -1).any(dim=1).sum(dtype=torch.int64))
+    P.count("custom_pixels", owned.sum(dtype=torch.int64))
 
 
 def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
@@ -696,6 +723,7 @@ def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
             lights=lights, systems=systems, uniform_writes=uw, bank=bank,
             atlas=atlas, tiles_x=tiles_x, th=th, twd=twd, width=width,
             h_total=h_total, y_off=y_off)
+        P.mark("render.custom")
         shaded = hook(shaded, s, d, wn)
         # the shading functions shade the transparent layer too
         shaded = hook(shaded, ts, td, twn, out_base=3,

@@ -52,8 +52,9 @@ all unless the settings it restores differ. ``set_tracing`` drops them all
 Tracing. With ``set_tracing(True)`` the programs are captured with their
 marks (``profiling.mark``: the spans ``step`` and its four stages,
 ``shadows``, ``render`` and its stages, ``store``, inside the frame
-program's ``frame``) and two counters, and every call records host spans
-(``engine.frame`` or the call's name; inside it ``engine.trace``,
+program's ``frame``) and their counters (the render's drop counters and,
+with custom shading on the fused route, its three), and every call records
+host spans (``engine.frame`` or the call's name; inside it ``engine.trace``,
 ``engine.record``, ``engine.feed``, ``engine.shadow_decision``,
 ``engine.launch`` for each replay, tagged with the program's key, and
 ``engine.clone``), an anchor event where its input copy starts and a tail
@@ -89,7 +90,8 @@ from render_engine_tpu_torch.render import lighting as LG
 from render_engine_tpu_torch.render import raster_pallas as RP
 from render_engine_tpu_torch.render import shade_pallas as SP
 from render_engine_tpu_torch.render import shadows as SH
-from render_engine_tpu_torch.render.frame import (RenderSettings,
+from render_engine_tpu_torch.render.frame import (CUSTOM_COUNTERS,
+                                                  RenderSettings,
                                                   render_frame,
                                                   shadow_tile_overflow)
 from render_engine_tpu_torch.render.geometry import (build_triangle_batch,
@@ -842,13 +844,19 @@ class Engine:
         last step left them (``step_drops``) and the render's
         ``triangle_budget_dropped`` and ``tile_candidate_dropped`` as the
         last traced program that renders left them (``render_drops``, read
-        from the graph: no geometry runs again)."""
+        from the graph: no geometry runs again), and, where that program
+        shades a system's pixels on the fused route, ``custom_tiles_resolved``
+        (the tiles K2 resolves for the shading functions, both layers),
+        ``custom_tiles_owned`` (those holding a covered pixel of a shading
+        system, counted per layer) and ``custom_pixels`` (those pixels,
+        both layers), read the same way."""
         tr = self._trace
         if tr is None:
             return {"frames": [], "counters": {}}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         tr.poll()
+        program = self._program_counters()
         counters = {
             "frames": tr.calls, "unread": tr.unread,
             "feed_waits": tr.feed_waits,
@@ -856,10 +864,12 @@ class Engine:
             "captures": len(self._programs),
             "capture_s": float(sum(self.capture_seconds().values())),
             "step_drops": unpack_drop_stats(self._state.drops),
-            "render_drops": self._render_counters()}
+            "render_drops": self._render_counters(program)}
+        counters.update({k: program[k] for k in CUSTOM_COUNTERS
+                         if k in program})
         return {"frames": tr.frames(), "counters": counters}
 
-    def _render_counters(self) -> dict:
+    def _program_counters(self) -> dict:
         """The counters of the last traced call that ran a program, from its
         last program that keeps any (the render's), read from its graph;
         {} where it has none."""
@@ -868,6 +878,14 @@ class Engine:
             if marks.counts:
                 return marks.counters()
         return {}
+
+    def _render_counters(self, program: dict | None = None) -> dict:
+        """The drop counters among ``program`` (``_program_counters()``
+        where None)."""
+        if program is None:
+            program = self._program_counters()
+        return {k: v for k, v in program.items()
+                if k not in CUSTOM_COUNTERS}
 
     def export_spans(self, path: str) -> dict:
         """``trace_report()`` written to ``path`` as JSON lines (the

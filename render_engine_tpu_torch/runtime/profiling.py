@@ -89,7 +89,8 @@ def end():
 def count(name: str, value: torch.Tensor, over: int = 0):
     """A counter the program computes anyway, a 0-dim integer tensor the
     recording keeps (on a card the graph writes it on every replay): it
-    reads as ``max(value - over, 0)``."""
+    reads as ``max(value - over, 0)``, summed over the program's counts of
+    the same ``name``."""
     if _ARMED is None:
         return
     _ARMED.counts.append((name, value, over))
@@ -189,8 +190,10 @@ class ProgramMarks:
             return {}
         vals = torch.stack([v.to(torch.int64).reshape(())
                             for _, v, _ in self.counts]).tolist()
-        return {name: max(v - over, 0)
-                for (name, _, over), v in zip(self.counts, vals)}
+        out: dict = {}
+        for (name, _, over), v in zip(self.counts, vals):
+            out[name] = out.get(name, 0) + max(v - over, 0)
+        return out
 
 
 def recording(marks: ProgramMarks | None):
