@@ -60,13 +60,18 @@ Phases (any failure exits non-zero; no phase catches its own):
              covered (in turns with --earlier), of select_tile_lights, and
              ms/frame in turns budget 0, 96, 96, 0.
   8. custom  the 1080p/10k engine again with a fragment-shading function on
-             the lit system and a draw callback on the light sources: K2
-             over every tile (twice a frame, 531 MB a launch) against its
-             plain version (exact) and one torch.gather; the frame through
-             kernels against plain versions; pixels the shading system does
-             not own equal the frame without it; launches a frame (K2
-             three); ms/frame with and without the function in turns; peak
-             device memory.
+             the lit system and a draw callback on the light sources: the
+             hook's G-buffer kernel (custom_gbuffer, both layers in one
+             launch) against its plain version on every pixel of both
+             layers, with its time, bound and the plain version's time; K2
+             over every tile of a layer (531 MB, the plain version's first
+             step, no longer launched on this frame) on the same slot plane
+             against its plain version (exact) and one torch.gather; the
+             frame through kernels against plain versions; pixels the
+             shading system does not own equal the frame without it;
+             launches a frame (custom_gbuffer one, K2 one, over the
+             textured tiles only); ms/frame with and without the function
+             in turns; peak device memory.
   9. golden  a 256x144 engine with a cubemap skybox: the golden path
              (backend="jnp") against the fused path on the card, and the
              card against the CPU.
@@ -308,6 +313,11 @@ KERNELS = {  # record name -> (launch-count key, source, TPU kernel)
     "deferred_shade": ("deferred_shade",
                        "render_engine_tpu_torch/csrc/deferred_shade.cu",
                        None),
+    # the custom-shading hook's G-buffer (phase 8): the JAX package forms it
+    # in XLA, so it replaces no Pallas kernel
+    "custom_gbuffer": ("custom_gbuffer",
+                       "render_engine_tpu_torch/csrc/custom_gbuffer.cu",
+                       None),
 }
 MAIN_PATH = ("tile_raster", "tile_raster_one_pass", "resolve", "fused_shade")
 # phase 11: bands of tile rows, and the image limits of the JAX package's
@@ -326,6 +336,9 @@ NONFUSED_TURNS = ("fused", "nonfused", "nonfused", "fused") * 2
 # two 8-bit steps is reported
 DEFERRED_TOL = 1e-5
 DEFERRED_STEP = 2.0 / 255.0
+# phase 8: the custom-shading hook's G-buffer kernel against its plain
+# version, every plane of both layers (0: equal to the bit)
+CUSTOM_TOL = 0.0
 # the frames of tests/deferred_scenes.py the kernel is held on beyond the
 # headline's: label -> (scene, pcf_scale or None for no shadow maps,
 # width, height, extra point lights, max_point_lights). The lit scene's
@@ -431,10 +444,11 @@ class Capture:
 
 
 class Plain:
-    """Route the four kernel wrappers to their plain PyTorch versions on
+    """Route the five kernel wrappers to their plain PyTorch versions on
     the card (for the whole-frame comparison)."""
 
     def __enter__(self):
+        from render_engine_tpu_torch.render import custom_gbuffer as CG
         from render_engine_tpu_torch.render import deferred_shade as DS
         from render_engine_tpu_torch.render import raster_pallas as RP
         from render_engine_tpu_torch.render import shade_pallas as SP
@@ -443,13 +457,15 @@ class Plain:
                       (RP, "resolve_attributes_pallas",
                        RP.resolve_attributes_pallas),
                       (SP, "shade_tiles", SP.shade_tiles),
-                      (DS, "deferred_shade", DS.deferred_shade)]
+                      (DS, "deferred_shade", DS.deferred_shade),
+                      (CG, "custom_gbuffer", CG.custom_gbuffer)]
         RP.tile_raster = RP.tile_raster_reference
         RP.resolve_attributes_pallas = (
             lambda slot, rows, cfg=None:
             RP.resolve_attributes_reference(slot, rows))
         SP.shade_tiles = SP.fused_shade_reference
         DS.deferred_shade = DS.deferred_shade_reference
+        CG.custom_gbuffer = CG.custom_gbuffer_reference
         return self
 
     def __exit__(self, *exc):
@@ -1000,15 +1016,17 @@ def phase_slice(eng):
     return launches
 
 
-def frame_launches(renders_map, resolve=1, tile_lists=0, deferred=0):
+def frame_launches(renders_map, resolve=1, tile_lists=0, deferred=0,
+                   custom=0):
     """The launches one frame must make: K1 twice when it renders a shadow
     map and once otherwise, K2 ``resolve`` times, K3 once (``tile_lists``:
     1 when it loops over lists), the default route's shading kernel
-    ``deferred`` times."""
+    ``deferred`` times, the custom-shading hook's G-buffer kernel
+    ``custom`` times."""
     return {"tile_raster": 1 + int(renders_map),
             "tile_raster_one_pass": int(renders_map), "resolve": resolve,
             "fused_shade": 1, "fused_shade_tile_lists": tile_lists,
-            "deferred_shade": deferred}
+            "deferred_shade": deferred, "custom_gbuffer": custom}
 
 
 def hold_kernels(eng, label, k3=False):
@@ -1515,14 +1533,45 @@ def custom_systems(eng):
             lambda sp: sp.base_color * float("nan"))
 
 
+def custom_planes(out):
+    """The planes of ``custom_gbuffer``'s result, layer after layer."""
+    return [t for gbuf, px_sys in out
+            for t in (gbuf.position, gbuf.normal, gbuf.albedo, gbuf.material,
+                      px_sys)]
+
+
+def custom_agreement(label, args, kw):
+    """The hook's G-buffer kernel against its plain version on every pixel
+    of both layers: each plane's largest difference and differing values
+    (CUSTOM_TOL: equal to the bit)."""
+    import torch
+
+    from render_engine_tpu_torch.render import custom_gbuffer as CG
+
+    got = CG.custom_gbuffer(*args, **kw)
+    want = CG.custom_gbuffer_reference(*args, **kw)
+    torch.cuda.synchronize()
+    names = ("position", "normal", "albedo", "material", "px_sys")
+    rows = []
+    for i, (g, w) in enumerate(zip(custom_planes(got), custom_planes(want))):
+        diff = (g.double() - w.double()).abs()
+        rows.append(f"{('opaque', 'transparent')[i // 5]} {names[i % 5]} "
+                    f"{float(diff.max()):.3g} ({int((diff > 0).sum())})")
+    log(f"[custom] {label}: kernel vs plain version, every pixel of both "
+        f"layers: max abs diff (values differing): {'; '.join(rows)} "
+        f"(tolerance {CUSTOM_TOL})")
+    check_close(label, custom_planes(got), custom_planes(want), CUSTOM_TOL)
+
+
 def phase_custom(eng):
-    """K2 over every tile on the headline engine with custom shading.
-    Returns the kernel record and the launches of the path's counted
-    run."""
+    """The hook's G-buffer kernel and K2 over every tile on the headline
+    engine with custom shading. Returns the two kernel records and the
+    launches of the path's counted run."""
     import torch
 
     from render_engine_tpu_torch import kernel_bounds as KB
     from render_engine_tpu_torch import kernels
+    from render_engine_tpu_torch.render import custom_gbuffer as CG
     from render_engine_tpu_torch.render import raster_pallas as RP
     from render_engine_tpu_torch.render.render_system import compile_systems
 
@@ -1532,8 +1581,9 @@ def phase_custom(eng):
     shaded, unshaded, marker = custom_systems(eng)
     eng.compiled_systems = shaded
 
-    # the path's counted run; a K2 launch is over every tile when its slot
-    # planes hold all of the frame's tiles
+    # the path's counted run: one G-buffer launch a frame, K2 only over the
+    # textured tiles (a K2 launch over every tile holds all the frame's
+    # tiles in its slot plane)
     nt = -(-SLICE["height"] // 8) * -(-SLICE["width"] // 128)
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1541,30 +1591,33 @@ def phase_custom(eng):
     frames = 6
     with Eager(eng), Capture(RP, "resolve_attributes_pallas",
                              note=lambda slot, rows, *a, **kw:
-                             slot.shape[0]) as tiles:
+                             slot.shape[0]) as tiles, \
+            Capture(CG, "custom_gbuffer") as cg:
         for i in range(frames):
             before = dict(kernels.LAUNCHES)
             renders_map = eng.shadow_state.tick % interval == 0
             img = eng.frame(None, DT)
-            got, want = launch_delta(before), frame_launches(renders_map,
-                                                             resolve=3)
-            seen = tiles.calls[3 * i:]
-            if got != want or len(seen) != 3 or seen[0] >= nt or \
-                    seen[1:] != [nt, nt]:
+            got, want = launch_delta(before), frame_launches(
+                renders_map, resolve=1, custom=1)
+            seen = tiles.calls[i:]
+            if got != want or len(seen) != 1 or seen[0] >= nt:
                 raise RuntimeError(f"custom frame {i} launched {got} with K2 "
                                    f"over {seen} tiles, expected {want} with "
-                                   f"K2 over fewer than {nt}, {nt}, {nt}")
+                                   f"K2 over fewer than {nt}")
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     launches["resolve_full_frame"] = sum(t == nt for t in tiles.calls)
     peak = torch.cuda.max_memory_allocated()
-    log(f"[custom] launches in {frames} frames: {launches} (K2 three a "
-        "frame: the textured tiles, then every tile of the opaque and of "
-        f"the transparent layer); peak device memory {peak / 2**20:.0f} MiB")
+    log(f"[custom] launches in {frames} frames: {launches} (the G-buffer "
+        "kernel once a frame for both layers; K2 once, over the textured "
+        f"tiles; K2 over every tile {launches['resolve_full_frame']} times); "
+        f"peak device memory {peak / 2**20:.0f} MiB")
     if not bool(torch.isfinite(img).all()):
         raise RuntimeError("custom: image has non-finite values")
+    for i, (a, kw) in enumerate(cg.calls):
+        custom_agreement(f"frame {i}", a, kw)
 
-    with Eager(eng), Capture(RP, "resolve_attributes_pallas") as k2:
+    with Eager(eng), Capture(CG, "custom_gbuffer") as cg:
         img_s = eng.render()
     with Eager(eng), Plain():
         img_p = eng.render()
@@ -1598,11 +1651,21 @@ def phase_custom(eng):
         raise RuntimeError("the draw callback (every light source drawn, "
                            "boost x 1, skybox on) changed the frame")
 
-    full = [c for c in k2.calls if c[0][0].shape[0] == nt]
-    if len(k2.calls) != 3 or len(full) != 2:
-        raise RuntimeError(f"{len(k2.calls)} K2 calls, {len(full)} of them "
-                           "over every tile")
-    a2 = full[0][0]
+    (a, kw), = cg.calls
+    layers, rows = a[0], a[1]
+    work = KB.custom_gbuffer_work(*a, **kw)
+    log(f"[custom] G-buffer inputs: slot {tuple(layers[0][0].shape)} a "
+        f"layer, rows {tuple(rows.shape)}, owned pixels "
+        f"{work['owned_pixels']}, distinct rows {work['rows']}, atlas "
+        f"samples {work['atlas_samples']}")
+    rec_cg = kernel_record(
+        "custom_gbuffer", CUSTOM_TOL,
+        lambda: custom_planes(CG.custom_gbuffer(*a, **kw)),
+        lambda: custom_planes(CG.custom_gbuffer_reference(*a, **kw)), work)
+
+    # K2 over every tile of the opaque layer, as the plain version's first
+    # step runs it, on the same slot plane
+    a2 = (layers[0][0], rows)
     covered = float((a2[0] >= 0).double().mean())
     out_bytes = a2[1].shape[2] * a2[0].numel() * 4
     log(f"[custom] K2 full-frame inputs: slot {tuple(a2[0].shape)}, rows "
@@ -1624,7 +1687,7 @@ def phase_custom(eng):
     rec.update(ms_per_frame_with_shading=turns["with"],
                ms_per_frame_without_shading=turns["without"],
                peak_memory_bytes=peak, output_bytes=out_bytes)
-    return rec, launches, frames
+    return rec, rec_cg, launches, frames
 
 
 def render_launches(label, before, frames):
@@ -3415,7 +3478,7 @@ def main() -> int:
                  "tile_raster_one_pass": launches["tile_raster_one_pass"]
                  / frames, "resolve": launches["resolve"] / frames,
                  "fused_shade": launches["fused_shade"] / frames}
-    rec_c, launches_c, frames_c = phase_custom(eng)
+    rec_c, rec_cg, launches_c, frames_c = phase_custom(eng)
     del eng
     torch.cuda.empty_cache()
     rec_l, launches_l, frames_l = phase_lights(earlier)
@@ -3429,14 +3492,18 @@ def main() -> int:
     # default route's K2 launches are all over every tile
     launches_d["resolve_nonfused"] = launches_d["resolve"]
     rec.update(resolve_full_frame=rec_c, fused_shade_tile_lists=rec_l,
-               resolve_nonfused=rec_d, deferred_shade=rec_ds)
+               resolve_nonfused=rec_d, deferred_shade=rec_ds,
+               custom_gbuffer=rec_cg)
+    # K2 over every tile no longer runs on the custom frame (phase 8 holds
+    # it to 0 there); its launches are the non-fused frame's (below)
     for name, run, n in (("resolve_full_frame", launches_c, frames_c),
                          ("fused_shade_tile_lists", launches_l, frames_l),
                          ("resolve_nonfused", launches_d, frames_d),
-                         ("deferred_shade", launches_d, frames_d)):
+                         ("deferred_shade", launches_d, frames_d),
+                         ("custom_gbuffer", launches_c, frames_c)):
         launches[name] = run[name]
         per_frame[name] = run[name] / n
-        if run[name] == 0:
+        if run[name] == 0 and name != "resolve_full_frame":
             raise RuntimeError(f"{name}: no launch on its path")
 
     kern = [dict(name=n, route="cuda", source=src, replaces=rep,

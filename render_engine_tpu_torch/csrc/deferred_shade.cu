@@ -66,7 +66,7 @@
 // still differs in the last bits, powf amplifies it and a PCF tap can flip
 // at a shadow edge.
 
-#include "common.cuh"
+#include "shade_math.cuh"
 
 namespace rek {
 
@@ -130,40 +130,10 @@ constexpr float kDiffuseFloor = 0.08f;  // lighting.DIFFUSE_FLOOR
 constexpr float kPcfBias = 2e-3f;       // shadows.PCF_BIAS
 
 
-struct V3 {
-  float x, y, z;
-};
-
-// a sum over three channels as PyTorch reduces the last dimension of size
-// 3: two lanes, the first holding elements 0 and 2
-__device__ __forceinline__ float sum3(float a, float b, float c) {
-  return (a + c) + b;
-}
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return sum3(a.x * b.x, a.y * b.y, a.z * b.z);
-}
-__device__ __forceinline__ float norm(V3 v) {
-  return sqrtf(sum3(v.x * v.x, v.y * v.y, v.z * v.z));
-}
-// v / where(|v| > eps, |v|, 1)
-__device__ __forceinline__ V3 unit(V3 v, float eps) {
-  const float n = norm(v);
-  const float d = n > eps ? n : 1.0f;
-  return {v.x / d, v.y / d, v.z / d};
-}
-__device__ __forceinline__ V3 load3(const float* p, size_t i) {
-  return {p[3 * i], p[3 * i + 1], p[3 * i + 2]};
-}
 // torch.maximum: NaN in either argument gives NaN
 __device__ __forceinline__ float maximum(float a, float b) {
   if (a != a || b != b) return __int_as_float(0x7fc00000);
   return a > b ? a : b;
-}
-// torch.remainder(x, 1.0) on the card
-__device__ __forceinline__ float rem1(float x) {
-  float m = fmodf(x, 1.0f);
-  if (m != 0.0f && m < 0.0f) m += 1.0f;
-  return m;
 }
 // torch.pow(x, e) for a Python number e, with PyTorch's special cases
 __device__ __forceinline__ float pow_scalar(float x, float e) {
@@ -267,40 +237,10 @@ __device__ float pcf(const DeferredArgs& A, int q, V3 w) {
 }
 
 // textures.sample_atlas of texture id `tex` at model-space (u, v)
-__device__ V3 sample_atlas(const DeferredArgs& A, int tex, float uu,
-                           float vv) {
-  const int t = min(max(tex, 0), A.n_tex - 1);
-  const int s = A.atlas_size;
-  const float sf = static_cast<float>(s) - 1.0f;
-  const int lay = A.tex_layer[t];
-  const float* rect = A.uv_rect + 4 * t;
-  const float u = rect[2] + rem1(uu) * rect[0];
-  const float v = rect[3] + (1.0f - rem1(vv)) * rect[1];
-  const int u0 = static_cast<int>(clamp_nan(floorf(u), 0.0f, sf));
-  const int v0 = static_cast<int>(clamp_nan(floorf(v), 0.0f, sf));
-  const int u1 = min(u0 + 1, s - 1), v1 = min(v0 + 1, s - 1);
-  const float fu = u - static_cast<float>(u0);
-  const float fv = v - static_cast<float>(v0);
-  const float* base = A.layers + static_cast<size_t>(lay) * s * s * 3;
-  const float* c00 = base + (static_cast<size_t>(v0) * s + u0) * 3;
-  const float* c01 = base + (static_cast<size_t>(v0) * s + u1) * 3;
-  const float* c10 = base + (static_cast<size_t>(v1) * s + u0) * 3;
-  const float* c11 = base + (static_cast<size_t>(v1) * s + u1) * 3;
-  float o[3];
-  for (int c = 0; c < 3; ++c) {
-    o[c] = (((__ldg(c00 + c) * (1.0f - fu)) * (1.0f - fv) +
-             (__ldg(c01 + c) * fu) * (1.0f - fv)) +
-            (__ldg(c10 + c) * (1.0f - fu)) * fv) +
-           (__ldg(c11 + c) * fu) * fv;
-  }
-  return {o[0], o[1], o[2]};
-}
-
-// torch.linalg.cross on the card: PyTorch's build contracts each
-// component a_i b_j - a_j b_i into fma(a_i, b_j, -(a_j b_i))
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {__fmaf_rn(a.y, b.z, -(a.z * b.y)), __fmaf_rn(a.z, b.x, -(a.x * b.z)),
-          __fmaf_rn(a.x, b.y, -(a.y * b.x))};
+__device__ __forceinline__ V3 sample_atlas(const DeferredArgs& A, int tex,
+                                           float uu, float vv) {
+  return sample_texture({A.layers, A.tex_layer, A.uv_rect, A.n_tex,
+                         A.atlas_size}, tex, uu, vv);
 }
 
 // geometry.triangle_tangents of triangle t: its tangent and handedness
@@ -322,23 +262,6 @@ __device__ void triangle_tangent(const DeferredArgs& A, int t, V3* tan,
   const V3 bit = {(e2.x * du1 - e1.x * du2) * r, (e2.y * du1 - e1.y * du2) * r,
                   (e2.z * du1 - e1.z * du2) * r};
   *handed = dot(cross(cross(e1, e2), *tan), bit) < 0.0f ? -1.0f : 1.0f;
-}
-
-// geometry.perturb_normal
-__device__ V3 perturb_normal(V3 n, V3 tan, float handed, V3 smp) {
-  const float nt = dot(n, tan);
-  V3 t = {tan.x - n.x * nt, tan.y - n.y * nt, tan.z - n.z * nt};
-  const float tl = norm(t);
-  if (!(tl > 1e-8f)) return n;
-  t = {t.x / tl, t.y / tl, t.z / tl};
-  V3 b = cross(n, t);
-  b = {b.x * handed, b.y * handed, b.z * handed};
-  const float m0 = smp.x * 2.0f - 1.0f, m1 = smp.y * 2.0f - 1.0f;
-  const float m2 = smp.z * 2.0f - 1.0f;
-  const V3 p = {(m0 * t.x + m1 * b.x) + m2 * n.x,
-                (m0 * t.y + m1 * b.y) + m2 * n.y,
-                (m0 * t.z + m1 * b.z) + m2 * n.z};
-  return unit(p, 1e-12f);
 }
 
 // What one layer of one pixel shades from

@@ -12,8 +12,9 @@ rows, skybox toggle), then takes one of three paths, as the JAX package's
   texture override, the per-slot PCF factor tiles of the shadow maps, the
   per-tile light lists (``light_tile_budget`` > 0), K3 (fused shade), then,
   for systems with a fragment-shading function, ``_fused_custom_shading``
-  per layer (K2 over every tile, the G-buffer from its channels, the user
-  function on its system's pixels), and the compose over the background;
+  (both layers' G-buffers on the pixels those systems own, in one
+  ``custom_gbuffer`` kernel, then the user function per layer), and the
+  compose over the background;
 * the non-fused tiled path (every other call on a tiled backend: the
   default ``fused_shading=False``, or a custom ``shadow_factor``, which
   cannot run inside a kernel's light loop): ``_render_frame_tiled`` runs
@@ -40,12 +41,12 @@ with custom shading the three of ``CUSTOM_COUNTERS``.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
 from render_engine_tpu_torch.math import transforms as T
+from render_engine_tpu_torch.render import custom_gbuffer as CG
 from render_engine_tpu_torch.render import deferred_shade as DS
 from render_engine_tpu_torch.render import lighting as L
 from render_engine_tpu_torch.render import raster_pallas as RP
@@ -59,8 +60,7 @@ from render_engine_tpu_torch.render.raster_jnp import (
 from render_engine_tpu_torch.render.shade_pallas import (fused_shade,
                                                          pack_lights,
                                                          select_tile_lights)
-from render_engine_tpu_torch.render.textures import (sample_atlas,
-                                                     sample_atlas_rows)
+from render_engine_tpu_torch.render.textures import sample_atlas_rows
 from render_engine_tpu_torch.runtime import profiling as P
 from render_engine_tpu_torch.utils import consts
 
@@ -538,81 +538,61 @@ def _per_slot_factor_tiles(shadow, d, wn, tiles_x, th, twd, width, h_total,
     return f.contiguous(), inv.contiguous()
 
 
-def _fused_custom_shading(shaded, s, d, wn, rows, tri_sys, camera, lights,
-                          systems, uniform_writes, bank, atlas, tiles_x, th,
-                          twd, width, h_total, y_off, out_base=0,
-                          textured=True):
+def _fused_custom_shading(shaded, layers, rows, tri_sys, camera, lights,
+                          systems, uniform_writes, bank, atlas, inv_pv, *,
+                          tiles_x, width, h_total, h_local, y_off):
     """Custom fragment shading on the fused path, a hook after K3.
 
     K3 resolves winner attributes in place and never forms a G-buffer, but
     shading functions read one (``ShadeParam``). So, only when a system has
-    a shading function, K2 resolves every tile of this layer, the G-buffer
-    comes from its channels, and the layer's color (channels ``out_base``
-    to ``out_base + 3`` of ``shaded``: 0 opaque, 3 transparent) is
-    rewritten on the pixels those systems own. ``base_color`` is K3's own
-    result, so shadows, tile light lists and texture overrides are in it.
-    ``textured``: whether K3 textured this layer, so that
-    ``ShadeParam.albedo`` is what the lighting consumed."""
+    a shading function, ``custom_gbuffer`` builds both layers' G-buffers on
+    the pixels those systems own (fixed values elsewhere, where the
+    functions' output is discarded), and each layer's color (channels 0 to
+    3 of ``shaded`` opaque, 3 to 6 transparent) is rewritten on those
+    pixels. ``base_color`` is K3's own result, so shadows, tile light lists
+    and texture overrides are in it. ``layers``: ``(slot, depth, winner,
+    textured)`` of the opaque and the transparent layer, ``textured``
+    whether K3 textured the layer, so that ``ShadeParam.albedo`` is what
+    the lighting consumed."""
     from render_engine_tpu_torch.render.render_system import (
         shade_systems_color)
 
-    nt = s.shape[0]
-    res = RP.resolve_attributes_pallas(s, rows)
-    ch = res.reshape(res.shape[0], nt * th, twd)
-    d_t = d.reshape(nt * th, twd)
-    wn_t = wn.reshape(nt * th, twd)
-    # pixel centers: the barycentrics take the band-local y (a band of rows
-    # rasters with y-shifted triangles), the unprojection the global row
-    px, py = RP._tall_pixel_centers(torch.arange(nt, device=s.device),
-                                    tiles_x, th, twd)
-    gbuf, extras = RP._gbuffer_from_channels(
-        ch, d_t, wn_t, h_total, width, T.inv44(camera.proj_view()), px=px,
-        py=py, ndc_py=py + float(y_off))
-    if atlas is not None and textured:
-        mat_safe = gbuf.material.clamp(0, bank.mat_textures.shape[0]
-                                       - 1).long()
-        layer = bank.mat_texture[mat_safe]
-        tex = sample_atlas(atlas, layer, extras["uv"])
-        normal = gbuf.normal
-        if bank.has_normal_maps():
-            nlayer = bank.mat_texture_norm[mat_safe]
-            nsamp = sample_atlas(atlas, nlayer, extras["uv"])
-            pert = perturb_normal(gbuf.normal, extras["tangent"],
-                                  extras["tangent_w"], nsamp)
-            normal = torch.where((nlayer >= 0)[..., None], pert, gbuf.normal)
-        gbuf = dataclasses.replace(
-            gbuf, normal=normal,
-            albedo=torch.where((layer >= 0)[..., None], tex, gbuf.albedo))
-    covered = wn_t >= 0
-    px_sys = tri_sys[wn_t.clamp(0, tri_sys.shape[0] - 1).long()]
+    nt, th, twd = layers[0][0].shape
+    planes = CG.custom_gbuffer(layers, rows, tri_sys, systems.sys_shaded,
+                               inv_pv, bank, atlas, tiles_x=tiles_x,
+                               width=width, h_total=h_total, h_local=h_local,
+                               y_off=y_off)
+    inside = None
     if P.armed():
-        _count_custom(px_sys, covered, systems, px, py, nt, width,
-                      h_total - y_off)
-    color = shaded[out_base:out_base + 3].permute(1, 2, 3, 0).reshape(
-        nt * th, twd, 3)
-    color = shade_systems_color(color, gbuf, px_sys, covered, camera, lights,
-                                systems, uniform_writes)
-    shaded[out_base:out_base + 3] = color.reshape(nt, th, twd, 3).permute(
-        3, 0, 1, 2)
+        inside = CG.inside_image(nt, tiles_x, th, twd, width, h_local,
+                                 rows.device)
+    for (gbuf, px_sys), out_base in zip(planes, (0, 3)):
+        covered = gbuf.tri_id >= 0
+        if inside is not None:
+            _count_custom(CG.owned_pixels(px_sys, gbuf.tri_id,
+                                          systems.sys_shaded, inside), nt,
+                          kernel_route=rows.device.type == "cuda")
+        color = shaded[out_base:out_base + 3].permute(1, 2, 3, 0).reshape(
+            nt * th, twd, 3)
+        color = shade_systems_color(color, gbuf, px_sys, covered, camera,
+                                    lights, systems, uniform_writes)
+        shaded[out_base:out_base + 3] = color.reshape(nt, th, twd,
+                                                      3).permute(3, 0, 1, 2)
     return shaded
 
 
-def _count_custom(px_sys, covered, systems, px, py, nt, width, rows):
-    """The custom-shading counters of one layer (``CUSTOM_COUNTERS``): the
-    ``nt`` tiles K2 resolved for the hook, the tiles holding a covered
-    pixel of a shading system, and those pixels, counting only pixels
-    inside the image (``width`` columns, ``rows`` rows from the first
-    tile's). A traced program adds the two layers' counts."""
-    dev = covered.device
-    owned = torch.zeros_like(covered)
-    for s, sys_ in enumerate(systems.src):
-        if sys_.shade is not None:
-            owned = owned | (px_sys == s)
-    owned = owned & covered & (px < width) & (py < rows)
-    P.count("custom_tiles_resolved",
-            torch.full((), nt, dtype=torch.int64, device=dev))
-    P.count("custom_tiles_owned",
-            owned.reshape(nt, -1).any(dim=1).sum(dtype=torch.int64))
+def _count_custom(owned, nt, kernel_route):
+    """The custom-shading counters of one layer (``CUSTOM_COUNTERS``) from
+    its ``owned`` pixels (``custom_gbuffer.owned_pixels``) in ``nt`` tiles:
+    the tiles resolved for the hook (on the kernel route those in which the
+    kernel read a candidate row, the tiles holding an owned pixel; on the
+    plain route all ``nt``, K2 over every tile), the tiles holding an owned
+    pixel, and those pixels. A traced program adds the two layers'
+    counts."""
+    tiles = owned.reshape(nt, -1).any(dim=1).sum(dtype=torch.int64)
+    P.count("custom_tiles_resolved", tiles if kernel_route else torch.full(
+        (), nt, dtype=torch.int64, device=owned.device))
+    P.count("custom_tiles_owned", tiles)
     P.count("custom_pixels", owned.sum(dtype=torch.int64))
 
 
@@ -717,18 +697,16 @@ def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
 
     if (systems is not None and systems.has_shade_callbacks()
             and tri_sys is not None):
-        uw = None if draw_ctx is None else draw_ctx.uniform_writes
-        hook = functools.partial(
-            _fused_custom_shading, rows=rows, tri_sys=tri_sys, camera=camera,
-            lights=lights, systems=systems, uniform_writes=uw, bank=bank,
-            atlas=atlas, tiles_x=tiles_x, th=th, twd=twd, width=width,
-            h_total=h_total, y_off=y_off)
         P.mark("render.custom")
-        shaded = hook(shaded, s, d, wn)
         # the shading functions shade the transparent layer too
-        shaded = hook(shaded, ts, td, twn, out_base=3,
-                      textured=settings.texture_transparent
-                      or (atlas is not None and bank.has_dissolve_maps()))
+        t_textured = settings.texture_transparent or (
+            atlas is not None and bank.has_dissolve_maps())
+        shaded = _fused_custom_shading(
+            shaded, ((s, d, wn, True), (ts, td, twn, t_textured)), rows,
+            tri_sys, camera, lights, systems,
+            None if draw_ctx is None else draw_ctx.uniform_writes, bank,
+            atlas, inv_pv, tiles_x=tiles_x, width=width, h_total=h_total,
+            h_local=h_local, y_off=y_off)
 
     P.mark("render.compose")
     img = shaded.reshape(8, tiles_y, tiles_x, th, twd).permute(

@@ -129,13 +129,24 @@ class CompiledSystems:
     """model_system (M,) int32: the system drawing each model (-1 none);
     sys_table (S, 6) f32 [unlit, boost, tint rgb, alpha_scale]; sys_lov
     (S,) f32 casts_lov per system; src: the source ``RenderSystem``
-    records, which carry the callbacks (() for converted systems)."""
+    records, which carry the callbacks (() for converted systems);
+    sys_shaded (max(len(src), 1),) int32, made from ``src`` with the
+    tables: 1 where a system has a fragment-shading function, so that a
+    captured frame finds the shading systems' pixels without an
+    upload."""
 
     model_system: torch.Tensor
     sys_table: torch.Tensor
     sys_lov: torch.Tensor
     names: tuple
     src: tuple = ()
+    sys_shaded: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                                 compare=False)
+
+    def __post_init__(self):
+        flags = [int(s.shade is not None) for s in self.src] or [0]
+        object.__setattr__(self, "sys_shaded", torch.tensor(
+            flags, dtype=torch.int32, device=self.model_system.device))
 
     def has_draw_callbacks(self) -> bool:
         return any(s.draw is not None for s in self.src)

@@ -846,10 +846,11 @@ class Engine:
         last traced program that renders left them (``render_drops``, read
         from the graph: no geometry runs again), and, where that program
         shades a system's pixels on the fused route, ``custom_tiles_resolved``
-        (the tiles K2 resolves for the shading functions, both layers),
-        ``custom_tiles_owned`` (those holding a covered pixel of a shading
-        system, counted per layer) and ``custom_pixels`` (those pixels,
-        both layers), read the same way."""
+        (the tiles resolved for the shading functions, both layers: on a
+        card those in which the G-buffer kernel read a candidate row, on
+        the CPU every tile), ``custom_tiles_owned`` (those holding an owned
+        pixel of a shading system, counted per layer) and ``custom_pixels``
+        (those pixels, both layers), read the same way."""
         tr = self._trace
         if tr is None:
             return {"frames": [], "counters": {}}

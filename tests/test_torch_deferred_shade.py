@@ -29,8 +29,6 @@ the default-route frames of these scenes to the JAX package's.
 import ctypes
 import dataclasses
 import os
-import re
-import subprocess
 
 import numpy as np
 import pytest
@@ -44,6 +42,7 @@ from render_engine_tpu_torch.render import render_system as RST
 from render_engine_tpu_torch.render import shadows as SHT
 from render_engine_tpu_torch.render.raster_jnp import RasterConfig as RCT
 
+import c_struct_layout
 import deferred_scenes as DSC
 import test_torch_render_systems as TRS
 from test_torch_frame import RASTER, TORCH_PK
@@ -340,41 +339,8 @@ def test_wrapper_refuses_a_missing_shininess_plane(meta_call):
 def test_args_structure_matches_the_kernels():
     """g++'s offsetof of every field of the source's struct equals the
     ctypes structure's, and so do the sizes."""
-    src = open(CSRC).read()
-    body = re.search(r"struct DeferredArgs \{(.*?)\n\};", src, re.S).group(1)
-    body = re.sub(r"//[^\n]*", "", body)
-    names = []
-    for decl in body.split(";"):
-        decl = decl.strip()
-        if not decl:
-            continue
-        parts = re.sub(r"\bconst\b", "", decl).replace("*", " ").split(
-            ",")
-        first = parts[0].split()
-        for part in [first[-1]] + [p.strip() for p in parts[1:]]:
-            names.append(part.split("[")[0].strip())
+    names, got, size = c_struct_layout.offsets(CSRC, "DeferredArgs")
     assert [n for n, _ in DS.DeferredArgs._fields_] == names
-    prog = ("#include <cstddef>\n#include <cstdio>\nstruct DeferredArgs {"
-            + body + "\n};\nint main() {\n"
-            + "".join(f'  printf("%zu\\n", offsetof(DeferredArgs, {n}));\n'
-                      for n in names)
-            + '  printf("%zu\\n", sizeof(DeferredArgs));\n}\n')
-    build = os.path.join(os.path.dirname(kernels.__file__), "_build")
-    os.makedirs(build, exist_ok=True)
-    cpp = os.path.join(build, f"deferred_args_{os.getpid()}.cpp")
-    exe = cpp[:-4]
-    try:
-        with open(cpp, "w") as f:
-            f.write(prog)
-        subprocess.run(["g++", "-std=c++17", "-o", exe, cpp], check=True,
-                       capture_output=True, timeout=120)
-        out = subprocess.run([exe], check=True, capture_output=True,
-                             text=True, timeout=60).stdout.split()
-    finally:
-        for p in (cpp, exe):
-            if os.path.exists(p):
-                os.remove(p)
     offsets = [getattr(DS.DeferredArgs, n).offset for n in names]
-    assert [int(x) for x in out] == offsets + [
-        ctypes.sizeof(DS.DeferredArgs)]
+    assert got + [size] == offsets + [ctypes.sizeof(DS.DeferredArgs)]
     assert np.all(np.diff(offsets) > 0)
