@@ -2870,9 +2870,10 @@ def mesh_steps(label, eng, steps, spawn_at=None):
 def mesh_frames(eng):
     """The captured sharded frame (``ShardedPrograms.frame``) against
     ``Engine.frame`` from the same state at tile budgets 1.0, over
-    interval x slots + 1 frames (every shadow decision's program captured,
-    one replayed): image (torch.equal), world hash, shadow state and the
-    launches of K1, K2 and K3 each frame equal; then one more frame's
+    interval x slots + 1 frames (both shadow decisions' programs captured,
+    every slot refreshed, the map program replayed): image (torch.equal),
+    world hash, shadow state and the launches of K1, K2 and K3 each frame
+    equal; then one more frame's
     program function run eagerly through the plain versions against its
     replay (phase 3's limits: the image within 1e-5, the world and the
     shadow maps equal); then ms a frame in turns. Returns the record and
@@ -2930,10 +2931,12 @@ def mesh_frames(eng):
     # one more frame, its program's function run eagerly through the plain
     # versions from the same state and inputs
     i = frames
-    key = ("frame", E.shadow_schedule(
+    decision, slot, _, _ = E.shadow_schedule(
         progs._sh_tick, progs._sh_cursor, c.shadow_update_interval,
-        progs._state.shadow[2].shape[0])[0])
-    eng._feed(frame_inputs(i).with_prev(progs._prev_keys).pack_with_dt(DT))
+        progs._state.shadow)
+    key = ("frame", decision)
+    eng._feed(frame_inputs(i).with_prev(progs._prev_keys).pack_with_dt(DT),
+              slot)
     pre = progs._state.clone()
     img = progs.frame(frame_inputs(i), DT)
     with Plain():

@@ -10,18 +10,18 @@ form of the Engine's programs (``runtime/engine.py``): functions over a
 replayed every frame.
 
 Each rank's state holds this rank's ``capacity / n`` rows of every world
-column (``shard_world``), the camera vector, the packed inputs with dt
-(fed as the Engine feeds them), the shadow tables, the step counters and
-the gathered image. Two program kinds:
+column (``shard_world``), the camera vector, the packed inputs with dt and
+the shadow slot (fed as the Engine feeds them), the shadow tables, the
+step counters and the gathered image. Two program kinds:
 
 * ``("step",)``: the partitioned step (``shard_step``) of this rank's
   rows; the stepped rows, the camera and the counters are written back;
 * ``("frame", decision)``: the partitioned step, the whole world gathered
   (``gather_world``), the shadow update for this frame's decision, this
   rank's band (``render_frame_sharded``) and the bands joined
-  (``gather_image``). The decision is the Engine's shadow schedule
-  (``"skip"`` or the slot, None without shadows), so a program per
-  decision met, as ``Engine``'s ``("frame", decision)`` programs.
+  (``gather_image``). The decision is the Engine's shadow schedule (None
+  without shadows, ``"skip"`` or ``"map"``; a map frame's slot is fed as
+  data), as for ``Engine``'s ``("frame", decision)`` programs.
 
 On a CUDA mesh the programs are captured (``capture_program``, the
 Engine's capture: two warm-ups on a side stream over a copy of the state,
@@ -34,18 +34,18 @@ into the graphs. On a CPU mesh (gloo) the same functions run eagerly. A
 CUDA mesh over gloo is refused (``GLOO_CUDA_REFUSED``).
 
 Every rank must replay the same programs in the same order, since each
-graph holds collectives. The decision comes from host integers that every
-rank advances alike, so the ranks agree by construction; the first use of
-each program checks it with one ``all_gather_object`` of its key.
+graph holds collectives. The decision and slot come from host integers
+every rank advances alike, so the ranks agree by construction; the first
+use of each program checks it with one ``all_gather_object`` of its key.
 
 The Engine's tracing (``Engine.set_tracing``) has no counterpart here: these
 captures arm no marks, so the marks in the shared step, shadow and render
 functions (``runtime/profiling.py``) return at once.
 
 What a program may depend on is what the Engine's may (its module
-docstring): per-frame values reach it only through the packed input
-vector and the camera vector. DTensor's host-side sharding propagation
-runs at capture only; a replay repeats the device work it recorded.
+docstring): per-frame values reach it only through the packed inputs,
+the shadow slot and the camera vector. DTensor's host-side sharding
+propagation runs at capture only; a replay repeats its device work.
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ class ShardedPrograms:
             world=shard_world(st.world, mesh).clone(), camv=st.camv.clone(),
             shadow=st.shadow and tuple(t.clone() for t in st.shadow),
             packed=st.packed, view=st.view.clone(), drops=st.drops.clone(),
-            image=st.image.clone())
+            image=st.image.clone(), slot=st.slot)
         self._sh_tick, self._sh_cursor = eng._sh_tick, eng._sh_cursor
         self._prev_keys = eng._prev_keys.copy()
         self.frame_index = eng.frame_index
@@ -141,10 +141,10 @@ class ShardedPrograms:
             rows, camera, _, drops = advance(st)
             store(st, rows, camera, drops)
 
-        def frame(st, variant):
+        def frame(st, decision):
             rows, camera, inputs, drops = advance(st)
             world = gather_world(rows, mesh)
-            sh = update(st, variant, world, camera)
+            sh = update(st, decision, world, camera)
             band = render_frame_sharded(
                 world, camera, bank, settings, mesh, cubemap=cubemap,
                 atlas=atlas, shadow_state=sh, systems=systems,
@@ -201,15 +201,6 @@ class ShardedPrograms:
         """Seconds each held program took to warm up and capture."""
         return {k: p.seconds for k, p in self._programs.items()}
 
-    def _decision(self):
-        if self._state.shadow is None:
-            return None
-        decision, self._sh_tick, self._sh_cursor = E.shadow_schedule(
-            self._sh_tick, self._sh_cursor,
-            self.eng.config.shadow_update_interval,
-            self._state.shadow[2].shape[0])
-        return decision
-
     # -- frames ------------------------------------------------------------
     def step(self, inputs: InputState, dt: float):
         """Advance the world one tick, partitioned (no render).
@@ -229,8 +220,11 @@ class ShardedPrograms:
             seed=self.frame_index)
         inputs = inputs.with_prev(self._prev_keys)
         self._prev_keys = np.asarray(inputs.keys, bool)
-        self.eng._feed(inputs.pack_with_dt(dt))
-        self._replay(("frame", self._decision()))
+        decision, slot, self._sh_tick, self._sh_cursor = E.shadow_schedule(
+            self._sh_tick, self._sh_cursor,
+            self.eng.config.shadow_update_interval, self._state.shadow)
+        self.eng._feed(inputs.pack_with_dt(dt), slot)
+        self._replay(("frame", decision))
         self.frame_index += 1
         return self._state.image.clone()
 

@@ -11,10 +11,11 @@ percentage-closer filter from it.
 Differences from the JAX package, none of which changes a value:
 
 * ``cursor`` and ``tick`` are host integers. The schedule is a pure
-  function of (state, tick), so the interval gate and the round-robin slot
-  are decided on the host and no update reads the device; ``slot``,
-  ``light``, ``face`` and ``do_render`` stay device tensors, and the slot
-  update is a ``torch.where`` over the slots.
+  function of (state, tick), so the interval gate is decided on the host
+  and no update reads the device; a program's ``cursor`` is the slot as a
+  device tensor, so one program serves every slot. ``slot``, ``light``,
+  ``face`` and ``do_render`` stay device tensors, and the slot update is a
+  ``torch.where`` over the slots.
 * The JAX package keeps a (slots, R*R, 16) table of each texel's edge-
   clamped 3x3 neighborhood (a TPU gather workaround); here the PCF reads
   the nine edge-clamped taps straight from ``maps``, which gives the same
@@ -66,7 +67,7 @@ class ShadowState:
     light_mats: torch.Tensor  # (S, 4, 4) each slot's light proj_view
     slot_entity: torch.Tensor  # (S,) int32 light entity, -1 free
     slot_face: torch.Tensor  # (S,) int32 cube face 0-5 (point lights)
-    cursor: int  # round-robin cursor (host)
+    cursor: int  # round-robin cursor (host; a device tensor in a program)
     tick: int  # updates seen, for the interval gate (host)
     resolution: int
     # PCF factors are computed every pcf_scale-th pixel and upsampled
@@ -233,13 +234,13 @@ def choose_light(shadow: ShadowState, world, camera_position):
     slot_ent = torch.where(slot_ok, slot_ent, -1)
     free = slot_ent < 0
     first_free = free.to(torch.int8).argmax()
-    rr_slot = shadow.cursor % shadow.slots
+    rr_slot = _device_index(shadow.cursor, dev).reshape(()) % shadow.slots
+    rr_ent = gather_row(slot_ent, rr_slot)
     new = any_unmapped & free.any()
     slot = torch.where(new, first_free, rr_slot)
-    light = torch.where(new, pick_new,
-                        slot_ent[rr_slot].clamp(0, cap - 1).long())
-    face = torch.where(new, pick_face, shadow.slot_face[rr_slot])
-    do_render = new | (slot_ent[rr_slot] >= 0)
+    light = torch.where(new, pick_new, rr_ent.clamp(0, cap - 1).long())
+    face = torch.where(new, pick_face, gather_row(shadow.slot_face, rr_slot))
+    do_render = new | (rr_ent >= 0)
     shadow = dataclasses.replace(shadow, slot_entity=slot_ent,
                                  cursor=shadow.cursor + 1)
     return shadow, slot, light, face, do_render

@@ -23,22 +23,21 @@ the camera vector, the shadow maps and tables, the packed inputs, the drop
 counters and the image. A program reads them and copies its results back
 into them (JAX's donation). On a CUDA device each program is captured once
 as a ``torch.cuda.CUDAGraph`` and replayed every frame: a frame is one
-pinned, non-blocking copy of ``InputState.pack_with_dt`` into the packed
-buffer, the replays, and a clone of the image. On the CPU the same
-functions run eagerly. There is no other route on the card: a program
-that cannot be captured raises.
+pinned, non-blocking copy of ``InputState.pack_with_dt`` and the shadow
+slot into the packed buffer, the replays, and a clone of the image. On
+the CPU the same functions run eagerly. There is no other route on the
+card: a program that cannot be captured raises.
 
 What a program may depend on. A graph replays the device work it saw at
 capture: Python values read while the program was built or captured (the
-camera's and the render settings' static fields, the schedule's slot, a
-number a draw callback writes) are constants of that program. Per-frame
-values reach a program only through the packed input vector and the
+camera's and the render settings' static fields, a number a draw callback
+writes) are constants of that program. Per-frame values reach a program
+only through the packed input vector, the shadow slot beside it and the
 camera vector; draw callbacks and custom shading functions are captured
 once, as JAX traces them once (``render/render_system.py``). The shadow
-schedule's interval gate and round-robin slot stay host decisions, as in
-the eager port (``render/shadows.py``): each decision met is a program
-variant of its own, keyed ``"skip"`` or by the slot, so the headline's
-interval 3 and 2 slots give at most three frame programs.
+schedule runs on the host (``render/shadows.py``): its interval gate picks
+the program (``"skip"`` or ``"map"``), and the round-robin slot a map
+frame refreshes reaches the graph as data, as JAX's device cursor does.
 
 Invalidation, as the JAX package re-jits: a new step, bank or camera
 configuration (``finalize_scene``, ``set_window``, ``set_draw_distances``)
@@ -121,7 +120,8 @@ class ProgramState:
     ``camv`` (8,), the shadow tables ``shadow`` (maps, light_mats,
     slot_entity, slot_face; None without shadows), this frame's ``packed``
     inputs, the camera vector ``view`` a render-only program draws
-    through, the step's ``drops`` (6,) int32 and the last ``image``."""
+    through, the step's ``drops`` (6,) int32, the last ``image`` and the
+    (1,) ``slot`` a map frame refreshes (0 where a caller gives none)."""
 
     world: W.World
     camv: torch.Tensor
@@ -130,6 +130,11 @@ class ProgramState:
     view: torch.Tensor
     drops: torch.Tensor
     image: torch.Tensor | None = None
+    slot: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.slot is None:
+            self.slot = torch.zeros(1, device=self.packed.device)
 
     def clone(self) -> "ProgramState":
         def c(t):
@@ -139,7 +144,7 @@ class ProgramState:
             shadow=(None if self.shadow is None
                     else tuple(t.clone() for t in self.shadow)),
             packed=c(self.packed), view=c(self.view), drops=c(self.drops),
-            image=c(self.image))
+            image=c(self.image), slot=c(self.slot))
 
 
 def _store(dst: torch.Tensor, src: torch.Tensor):
@@ -276,14 +281,16 @@ def capture_program(fn, state: ProgramState, pool,
                     marks)
 
 
-def shadow_schedule(tick: int, cursor: int, interval: int, slots: int):
-    """One frame of the shadow schedule on the host, as
-    ``render/shadows.py``'s ``render_shadow_map`` advances it: returns
-    ``(decision, tick, cursor)`` with the decision ``"skip"`` where the
-    interval gate skips, else the round-robin slot of this map frame."""
+def shadow_schedule(tick: int, cursor: int, interval: int, shadow):
+    """One frame of the shadow schedule of the tables ``shadow`` on the
+    host, as ``render/shadows.py``'s ``render_shadow_map`` advances it:
+    ``(decision, slot, tick, cursor)``, the decision None without shadows,
+    ``"skip"`` where the interval gate skips, else ``"map"``."""
+    if shadow is None:
+        return None, 0, tick, cursor
     if interval > 1 and tick % interval != 0:
-        return "skip", tick + 1, cursor
-    return cursor % slots, tick + 1, cursor + 1
+        return "skip", 0, tick + 1, cursor
+    return "map", cursor % shadow[2].shape[0], tick + 1, cursor + 1
 
 
 def config_step(cfg: EngineConfig):
@@ -319,24 +326,25 @@ class Engine:
         self.bank: ModelBank | None = None
         self._step_fn = None  # no programs before finalize_scene
         self._views: dict = {}
-        # the packed inputs' host side: on a card a ring of pinned buffers,
-        # each copied to the device buffer once; on the CPU the buffer's
-        # own memory
+        # the packed inputs, then the shadow slot, in one buffer; its host
+        # side: on a card a ring of pinned buffers, each copied to the
+        # device buffer once; on the CPU the buffer's own memory
         self._stage = []
         self._stage_at = 0
+        n = PACKED_INPUT_LEN
         if dev.type == "cuda":
-            self._stage = [(torch.zeros(PACKED_INPUT_LEN).pin_memory(),
+            self._stage = [(torch.zeros(n + 1).pin_memory(),
                             torch.cuda.Event()) for _ in range(_STAGING)]
-            packed = torch.zeros(PACKED_INPUT_LEN, device=dev)
+            self._inbox = torch.zeros(n + 1, device=dev)
         else:
-            self._packed_host = np.zeros(PACKED_INPUT_LEN, np.float32)
-            packed = torch.from_numpy(self._packed_host)
+            self._packed_host = np.zeros(n + 1, np.float32)
+            self._inbox = torch.from_numpy(self._packed_host)
         self._state = ProgramState(
             world=W.create_world(self.world_config, dev),
-            camv=torch.zeros(8, device=dev), shadow=None, packed=packed,
-            view=torch.zeros(8, device=dev),
+            camv=torch.zeros(8, device=dev), shadow=None,
+            packed=self._inbox[:n], view=torch.zeros(8, device=dev),
             drops=torch.zeros(len(STEP_DROP_KEYS), dtype=torch.int32,
-                              device=dev))
+                              device=dev), slot=self._inbox[n:])
         # the per-counter max over a burst (runs outside the programs)
         self._burst_drops = torch.zeros_like(self._state.drops)
         self._cam_template: Camera | None = None
@@ -588,11 +596,11 @@ class Engine:
     @property
     def captured_programs(self) -> frozenset:
         """The keys of the programs held: ``("step",)``, ``("frame",
-        v)``, ``("render_shadowed", v)``, ``("shadows", slot)`` and
+        v)``, ``("render_shadowed", v)``, ``("shadows", "map")`` and
         ``("render", camera configuration, with inputs)``, where ``v`` is
-        the shadow schedule's decision (None without shadows, ``"skip"``,
-        or the slot a map frame renders). Programs whose configuration
-        changed are dropped first."""
+        the shadow schedule's decision: None without shadows, ``"skip"``
+        or ``"map"``, one program each whatever the slot count. Programs
+        whose configuration changed are dropped first."""
         self._refresh_programs()
         return frozenset(self._programs)
 
@@ -637,14 +645,13 @@ class Engine:
         self._state.image = torch.zeros((settings.height, settings.width, 3),
                                         device=self.device)
 
-        def update(st, variant, world, camera):
-            """The shadow state after this frame's update: ``variant`` is
-            the schedule's decision (``"skip"`` or the round-robin slot)."""
+        def update(st, decision, world, camera):
+            """The shadow state after this frame's update: ``decision`` is
+            the schedule's (``"map"`` refreshes the slot ``st.slot``)."""
             if not shadowed:
                 return None
-            sh = self._shadow_view(st.shadow, cursor=(
-                variant if isinstance(variant, int) else 0))
-            if not isinstance(variant, int):
+            sh = self._shadow_view(st.shadow, cursor=st.slot)
+            if decision != "map":
                 return sh
             return SH._render_shadow_map_now(
                 sh, world, camera, bank, max_tris=cfg.shadow_max_tris,
@@ -667,10 +674,10 @@ class Engine:
             st.image.copy_(img)
             P.end()
 
-        def render_shadowed(st, variant):
+        def render_shadowed(st, decision):
             camera = cam0.apply_serialized(st.camv)
             P.mark("shadows")
-            sh = update(st, variant, st.world, camera)
+            sh = update(st, decision, st.world, camera)
             img = draw(st.world, camera, sh,
                        InputState.unpack_with_dt(st.packed)[0])
             P.mark("store")
@@ -678,17 +685,17 @@ class Engine:
             _store_shadow(st, sh)
             P.end()
 
-        def update_shadow(st, variant):
+        def update_shadow(st, decision):
             P.mark("shadows")
-            sh = update(st, variant, st.world, cam0.apply_serialized(st.camv))
+            sh = update(st, decision, st.world, cam0.apply_serialized(st.camv))
             P.mark("store")
             _store_shadow(st, sh)
             P.end()
 
-        def frame_fused(st, variant):
+        def frame_fused(st, decision):
             world, camera, inputs, drops = advance(st)
             P.mark("shadows")
-            sh = update(st, variant, world, camera)
+            sh = update(st, decision, world, camera)
             img = draw(world, camera, sh, inputs)
             P.mark("store")
             _store_world(st.world, world)
@@ -779,38 +786,34 @@ class Engine:
         """Seconds each held program took to warm up and capture."""
         return {k: p.seconds for k, p in self._programs.items()}
 
-    def _feed(self, packed: np.ndarray):
-        """This frame's packed inputs into the static buffer: on a card one
-        non-blocking copy from a pinned buffer of a small ring (a buffer is
-        written again only after its last copy ran)."""
+    def _feed(self, packed: np.ndarray, slot: int = 0):
+        """The packed inputs and shadow slot into the static buffer: on a
+        card one non-blocking copy from a pinned buffer of a small ring (a
+        buffer is written again only after its last copy ran)."""
         tr = self._trace if self._tracing else None
         if tr is not None:
             tr.anchor()
+        row = np.append(packed, np.float32(slot))
         if not self._stage:
-            self._packed_host[:] = packed
+            self._packed_host[:] = row
             return
         self._stage_at = (self._stage_at + 1) % len(self._stage)
         buf, copied = self._stage[self._stage_at]
         if tr is not None and not copied.query():
             tr.feed_waits += 1  # the engine's only wait for the device
         copied.synchronize()
-        buf.numpy()[:] = packed
-        self._state.packed.copy_(buf, non_blocking=True)
+        buf.numpy()[:] = row
+        self._inbox.copy_(buf, non_blocking=True)
         copied.record(torch.cuda.current_stream(self.device))
 
     def _shadow_decision(self):
-        """The shadow update's host decision, advancing the schedule as
-        ``render/shadows.py``'s ``render_shadow_map`` does: None without
-        shadows, ``"skip"`` where the interval gate skips, else the
-        round-robin slot of this map frame."""
-        if self._state.shadow is None:
-            return None
+        """This frame's shadow decision and slot, advancing the host's
+        schedule (``shadow_schedule``)."""
         self._views.pop("shadow", None)
-        decision, self._sh_tick, self._sh_cursor = shadow_schedule(
+        decision, slot, self._sh_tick, self._sh_cursor = shadow_schedule(
             self._sh_tick, self._sh_cursor,
-            self.config.shadow_update_interval,
-            self._state.shadow[2].shape[0])
-        return decision
+            self.config.shadow_update_interval, self._state.shadow)
+        return decision, slot
 
     # -- tracing -------------------------------------------------------------
     def set_tracing(self, on: bool):
@@ -908,11 +911,12 @@ class Engine:
     def update_shadows(self):
         """One shadow-map update of the current state (the interval gate
         and the round-robin schedule run on the host; a skipped update
-        launches nothing)."""
+        launches nothing, a map update writes the slot and replays)."""
         with self._call("engine.update_shadows"):
-            decision = self._shadow_decision()
-            if isinstance(decision, int):
-                self._replay(("shadows", decision))
+            decision, slot = self._shadow_decision()
+            if decision == "map":
+                self._state.slot.fill_(slot)
+                self._replay(("shadows", "map"))
 
     def render(self, camera=None, inputs: InputState | None = None
                ) -> torch.Tensor:
@@ -962,19 +966,19 @@ class Engine:
             # stream, so replay rebuilds them
             inputs = inputs.with_prev(self._prev_keys)
             self._prev_keys = np.asarray(inputs.keys, bool)
-        # one transfer: the step and the draw callbacks read the same
-        # packed vector, live and in a replay
-        with tr.host("engine.feed") if tr else _OFF:
-            self._feed(inputs.pack_with_dt(dt))
-        if fused:
+        decision, slot = None, 0
+        if fused or render:
             with tr.host("engine.shadow_decision") if tr else _OFF:
-                decision = self._shadow_decision()
+                decision, slot = self._shadow_decision()
+        # one transfer: the step, the draw callbacks and the shadow update
+        # read the same packed vector, live and in a replay
+        with tr.host("engine.feed") if tr else _OFF:
+            self._feed(inputs.pack_with_dt(dt), slot)
+        if fused:
             self._replay(("frame", decision))
         else:
             self._replay(("step",))
             if render:
-                with tr.host("engine.shadow_decision") if tr else _OFF:
-                    decision = self._shadow_decision()
                 self._replay(("render_shadowed", decision))
         self._last_drops = self._state.drops
         self.frame_index += 1

@@ -9,8 +9,9 @@ counterpart of the JAX package's multichip dry run
 
 Every rank builds the demo engine (the same seed everywhere), keeps its
 ``capacity / N`` rows of the world (``shard_world``) and runs ``--frames``
-frames (by default the shadow update interval x slots + 1, so that every
-shadow decision's program is met and one is replayed) through
+frames (by default the shadow update interval x slots + 1, so that both
+shadow decisions' programs are met, every slot is refreshed and the map
+program is replayed) through
 ``ShardedPrograms`` (``render_engine_tpu_torch/parallel/program.py``):
 the partitioned step of its rows (``shard_step``), the world gathered
 (``gather_world``, the counterpart of the JAX render pass's all-gather of
@@ -198,8 +199,9 @@ def scale(mesh, height, eager=False, log=print):
 
 
 def frames_needed(eng):
-    """Frames that meet every shadow decision's program and replay one:
-    ``shadow_update_interval x shadow_slots + 1`` (1 without shadows)."""
+    """Frames that meet both shadow decisions' programs, refresh every slot
+    and replay the map program: ``shadow_update_interval x shadow_slots +
+    1`` (1 without shadows)."""
     c = eng.config
     return c.shadow_update_interval * c.shadow_slots + 1 \
         if c.enable_shadows else 1
@@ -368,7 +370,7 @@ def frame_turns(mesh, eng, log=print):
                pool_mib=graph_pool_bytes(progs._pool) / 2 ** 20,
                single_pool_mib=graph_pool_bytes(eng._pool) / 2 ** 20,
                collectives={k[0]: collectives(progs, k)
-                            for k in (("step",), ("frame", 0))})
+                            for k in (("step",), ("frame", "map"))})
     if mesh.rank == 0:
         log(f"multigpu_torch turns: {len(secs)} sharded programs captured in "
             f"{rec['capture_s']:.2f} s (two warm-ups each included), graph "

@@ -123,9 +123,7 @@ def test_frames_equal_engine_frame(ranks, n_ranks):
         assert got["hash"] == world_hash(eng.world), i
         assert torch.equal(got["camera"], eng.camera.serialize()), i
         assert got["stats"] == unpack_drop_stats(eng._last_drops), i
-    slots = eng.config.shadow_slots
-    assert rec["programs"] == sorted(
-        [("frame", s) for s in range(slots)] + [("step",)], key=str)
+    assert rec["programs"] == sorted([("frame", "map"), ("step",)], key=str)
     cap = eng.config.capacity
     for r in rec["ranks"]:
         assert set(r["rows"].values()) == {cap // n_ranks}

@@ -24,6 +24,9 @@ graphs.
   debug mode and for capture's ban on pageable copies). K1's plain
   version, which stands in for a kernel, reads its loop's trip count from
   its inputs; the patches are lifted inside it.
+* One program per shadow decision: six slots at interval 1 run through
+  ``("frame", "map")`` alone, the slot fed as data, frame for frame equal
+  to the program's function fed by hand.
 * Invalidation: each config event drops exactly the programs it must; a
   new window renders at its size; a recorded run with window and
   draw-distance events replays twice on one engine, ``reset`` between,
@@ -55,6 +58,7 @@ from render_engine_tpu_torch.logic.types import KEY_W, NUM_KEYS
 from render_engine_tpu_torch.logic.types import InputState as TInput
 from render_engine_tpu_torch.render import skybox as SB
 from render_engine_tpu_torch.render.frame import to_srgb_u8
+from render_engine_tpu_torch.runtime import engine as E
 from render_engine_tpu_torch.runtime.history import HistoryLog
 from render_engine_tpu_torch.runtime.replay import Player
 from render_engine_tpu_torch.utils.hashing import world_hash
@@ -74,7 +78,7 @@ DTS = (1 / 60, 1 / 30, 4.5, 1 / 60, 0.05, 1 / 60, 1 / 45, 1 / 60, 0.1,
 SEEDS = tuple((s + i) & 0xFFFFFFFF for i, s in enumerate(
     (7, 2 ** 32 - 1, 12345, 2 ** 31) * 3))
 DT = 1 / 60
-VARIANTS = {("frame", "skip"), ("frame", 0), ("frame", 1)}
+VARIANTS = {("frame", "skip"), ("frame", "map")}
 
 
 def _inputs(cls, i, seed=None):
@@ -220,7 +224,7 @@ def test_no_host_traffic(small, what):
         if what == "step":
             eng.program_function(("step",))(eng._state)
         elif what == "shadowed_frame":
-            eng.program_function(("frame", 1))(eng._state)
+            eng.program_function(("frame", "map"))(eng._state)
         else:
             eng.run_frames_rendered(
                 [_inputs(TInput, i) for i in range(4)], [DT] * 4)
@@ -242,6 +246,59 @@ def test_no_host_traffic_refuses_a_read(small):
         with no_host_traffic(), pytest.raises(AssertionError,
                                               match="read or uploaded"):
             drops[index]
+
+
+# ------------------------------------------------ one program per decision
+def test_one_map_program_serves_every_slot():
+    """Six slots at interval 1: 13 frames wrap the round-robin cursor twice
+    through the one program ``("frame", "map")``. Each frame's image, world
+    hash and four shadow tables equal those of the same frame run eagerly
+    through ``program_function`` on a second engine whose packed inputs
+    and slot are written by hand; the cursor and the tick count the frames.
+    A map program run on a state built from the public views (as the
+    benchmark's bound run builds one, without a slot) leaves the schedule
+    where it was."""
+    kw = dict(SMALL, shadow_slots=6, shadow_update_interval=1)
+    eng = TS.build_space_engine(device="cpu", **kw)
+    ref = TS.build_space_engine(device="cpu", **kw)
+    for e in (eng, ref):
+        e.config.record_history = False
+    fn, st = ref.program_function(("frame", "map")), ref._state
+    prev = np.zeros(NUM_KEYS, bool)
+    for i in range(13):
+        # the two spot lights move, so each refresh shows in its slot's
+        # light matrix
+        w = eng.world
+        w["position"][:2] += 1.0
+        eng.world = w
+        st.world["position"][:2] += 1.0
+        img = eng.frame(_inputs(TInput, i), DT)
+        inputs = _inputs(TInput, i).with_prev(prev)
+        prev = np.asarray(inputs.keys, bool)
+        st.packed.copy_(torch.from_numpy(inputs.pack_with_dt(DT)))
+        st.slot.fill_(i % 6)
+        fn(st)
+        sh = eng.shadow_state
+        assert torch.equal(img, st.image), i
+        assert world_hash(eng.world) == world_hash(st.world), i
+        for a, b in zip((sh.maps, sh.light_mats, sh.slot_entity,
+                         sh.slot_face), st.shadow):
+            assert torch.equal(a, b), i
+        assert (sh.cursor, sh.tick) == (i + 1, i + 1)
+    assert eng.captured_programs == {("frame", "map")}
+    assert st.shadow[2].tolist() == [0, 1, -1, -1, -1, -1]
+
+    sh, camv = eng.shadow_state, eng.camera.serialize().clone()
+    bench = E.ProgramState(
+        world=eng.world, camv=camv,
+        shadow=(sh.maps, sh.light_mats, sh.slot_entity, sh.slot_face),
+        packed=torch.as_tensor(_inputs(TInput, 13).pack_with_dt(DT)),
+        view=camv.clone(), drops=torch.zeros(6, dtype=torch.int32),
+        image=torch.empty(kw["height"], kw["width"], 3))
+    eng.program_function(("frame", "map"))(bench)
+    assert bench.slot.tolist() == [0.0]
+    assert (eng.shadow_state.cursor, eng.shadow_state.tick) == (13, 13)
+    assert torch.isfinite(bench.image).all()
 
 
 # ------------------------------------------------------------ invalidation
@@ -297,7 +354,8 @@ def test_events_drop_their_programs(event):
         setup(eng)
     _drive(eng)
     before = eng.captured_programs
-    assert {("step",), ("frame", 0), ("render_shadowed", "skip")} <= before
+    assert {("step",), ("frame", "map"), ("render_shadowed", "skip")} <= \
+        before
     assert any(k[0] == "render" for k in before)
     prev = torch.are_deterministic_algorithms_enabled()
     try:

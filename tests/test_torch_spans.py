@@ -107,8 +107,7 @@ def test_off_records_nothing():
     finally:
         P.mark = orig
     assert armed and not any(armed)
-    assert eng.captured_programs == {("frame", "skip"), ("frame", 0),
-                                     ("frame", 1)}
+    assert eng.captured_programs == {("frame", "skip"), ("frame", "map")}
     assert all(p.marks is None and p.twin is None
                for p in eng._programs.values())
     assert eng.trace_report() == {"frames": [], "counters": {}}
@@ -185,8 +184,8 @@ def test_span_trees(traced):
     assert [c["call"] for c in calls] == ["engine.frame"] * 5 + [
         "engine.step", "engine.render", "engine.update_shadows"]
     assert [c["programs"] for c in calls[:5]] == [
-        ["('frame', 0)"], ["('frame', 'skip')"], ["('frame', 'skip')"],
-        ["('step',)", "('render_shadowed', 1)"],
+        ["('frame', 'map')"], ["('frame', 'skip')"], ["('frame', 'skip')"],
+        ["('step',)", "('render_shadowed', 'map')"],
         ["('step',)", "('render_shadowed', 'skip')"]]
     # each device span names its program's kind, the key's first element
     assert [{s["kind"] for s in c["spans"]} for c in calls[:7]] == [
@@ -229,13 +228,13 @@ def test_host_spans_and_counters(traced):
     call = rep["frames"][1]
     host = [(h["name"], h["parent"]) for h in call["host"]]
     assert host == [("engine.frame", None), ("engine.record", 0),
-                    ("engine.feed", 0), ("engine.shadow_decision", 0),
+                    ("engine.shadow_decision", 0), ("engine.feed", 0),
                     ("engine.launch", 0), ("engine.clone", 0),
                     ("engine.trace", 0)]
     assert call["host"][4]["tag"] == "('frame', 'skip')"
     assert call["host"][0]["self_ms"] == pytest.approx(
         call["host"][0]["ms"] - sum(h["ms"] for h in call["host"][1:]))
-    assert call["anchor_ms"] >= call["host"][2]["start_ms"]
+    assert call["anchor_ms"] >= call["host"][3]["start_ms"]
     c = rep["counters"]
     assert c["frames"] == 8 and c["unread"] == 0 and c["feed_waits"] == 0
     assert c["captures"] == len(eng.captured_programs)

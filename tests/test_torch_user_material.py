@@ -184,7 +184,7 @@ def test_the_frame_reads_and_uploads_nothing_on_the_host(run):
     """The frame program with the user's systems, traced, as a capture
     would run it: no host read, no upload."""
     eng = run["eng"]
-    fn = eng.program_function(("frame", 0))
+    fn = eng.program_function(("frame", "map"))
     marks = P.ProgramMarks(False, "frame")
     with no_host_traffic(), marks.recording():
         fn(eng._state)

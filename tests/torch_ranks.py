@@ -520,7 +520,7 @@ def sharded_programs(rank, n_ranks, store, plan, frames, steps, out):
             rec["rows"] = {k: int(v.shape[0])
                            for k, v in columns(progs.rows).items()}
             eager = {}
-            for key in (("frame", 1), ("step",)):
+            for key in (("frame", "map"), ("step",)):
                 fn = progs.program_function(key)
                 st = progs._state.clone()
                 first, second = st.clone(), st.clone()
