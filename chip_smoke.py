@@ -110,7 +110,8 @@ Phases (any failure exits non-zero; no phase catches its own):
              (history and frame times included) is put back.
   12. nonfused the same frame through the non-fused tiled path (a
              shadow_factor callback: the one the golden path builds from
-             the shadow maps): K1 once, K2 twice over every tile, no K3;
+             the shadow maps): K1 once, the tall G-buffer kernel once over
+             every tile of both layers, no K2, no K3;
              the frame through kernels against plain versions (1e-5) and
              against the fused frame at tile budgets 1.0: 99.5% of pixels
              within 1e-2 and median 0; without shadows max diff below
@@ -179,23 +180,28 @@ Phases (any failure exits non-zero; no phase catches its own):
              setting made the engine's initial one): the native OBJ parser
              loaded and the station's parse equal to the Python parse, with
              the ms of each; 33 captured frames, each launching K1 twice
-             on map frames and once on the rest, K2 twice (every tile of
-             each layer), the shading kernel (csrc/deferred_shade.cu) once
-             and no K3, a finite lit image, all 13 drop counters 0, peak
-             device memory; every route of phase 13 (32 steps) captured
-             against eager bit for bit (world hash, image, shadow state,
-             counters, launches), capture seconds and graph pool MiB; a
-             frame that renders a map through the eager programs, its K1
-             (both modes) and K2 (both layers, A = 48) against their plain
-             versions, exact; the frame through the kernels against the
+             on map frames and once on the rest, the tall G-buffer kernel
+             (csrc/tall_gbuffer.cu, both layers) once, the shading kernel
+             (csrc/deferred_shade.cu) once and no K2 or K3, a finite lit
+             image, all 13 drop counters 0, peak device memory; every
+             route of phase 13 (32 steps) captured against eager bit for
+             bit (world hash, image, shadow state, counters, launches),
+             capture seconds and graph pool MiB; a frame that renders a map
+             through the eager programs, its K1 (both modes) against its
+             plain version, exact, and the tall G-buffer kernel against its
+             plain version (K2 over every tile and the chain, rows of A =
+             48) on every plane and every pixel of both layers, equal to
+             the bit (TALL_TOL), with its record (device ms, bound, share,
+             plain ms); the frame through the kernels against the
              plain versions (1e-5); the shading kernel against its plain
              version on that frame's arguments (the flags equal, every
              composed pixel and covered plane within 1e-5, the share of
              pixels beyond 2/255 reported), with its record (device ms,
-             bound, share, plain ms); K2's record (resolve_nonfused:
-             device ms, bound, torch.gather); a profile (host API calls,
-             device rows and time a frame, busy share, the rows that take
-             the most device time); the shading kernel's launches a frame
+             bound, share, plain ms); K2's record on the same frame's
+             opaque slot plane (resolve_nonfused, no longer launched on
+             this route: device ms, bound, torch.gather); a profile (host
+             API calls, device rows and time a frame, busy share, the rows
+             that take the most device time); the shading kernel's launches a frame
              on both routes (1 and 0); ms a captured frame in turns
              against a second engine on the fused route; both engines'
              graph pools; last, the shading kernel against its plain
@@ -304,10 +310,15 @@ KERNELS = {  # record name -> (launch-count key, source, TPU kernel)
                                "render_engine_tpu_torch/csrc/fused_shade.cu",
                                "render_engine_tpu/render/shade_pallas.py:249"),
     # K2 over every tile of each layer on the JAX package's default route
-    # (phase 16): its launches come from that phase's run
+    # (phase 16): since the tall G-buffer kernel it launches none there
     "resolve_nonfused": ("resolve_nonfused",
                          "render_engine_tpu_torch/csrc/resolve.cu",
                          "render_engine_tpu/render/raster_pallas.py:476"),
+    # the default route's tall G-buffers (phase 16): K2 over every tile
+    # fused with the chain after it; the JAX package leaves the route to
+    # XLA, so it replaces no Pallas kernel
+    "tall_gbuffer": ("tall_gbuffer",
+                     "render_engine_tpu_torch/csrc/tall_gbuffer.cu", None),
     # the default route's shading (phase 16): the JAX package leaves it to
     # XLA, so it replaces no Pallas kernel
     "deferred_shade": ("deferred_shade",
@@ -339,6 +350,9 @@ DEFERRED_STEP = 2.0 / 255.0
 # phase 8: the custom-shading hook's G-buffer kernel against its plain
 # version, every plane of both layers (0: equal to the bit)
 CUSTOM_TOL = 0.0
+# phase 16: the default route's tall G-buffer kernel against its plain
+# version, every plane and key of both layers (0: equal to the bit)
+TALL_TOL = 0.0
 # the frames of tests/deferred_scenes.py the kernel is held on beyond the
 # headline's: label -> (scene, pcf_scale or None for no shadow maps,
 # width, height, extra point lights, max_point_lights). The lit scene's
@@ -444,7 +458,7 @@ class Capture:
 
 
 class Plain:
-    """Route the five kernel wrappers to their plain PyTorch versions on
+    """Route the six kernel wrappers to their plain PyTorch versions on
     the card (for the whole-frame comparison)."""
 
     def __enter__(self):
@@ -452,12 +466,14 @@ class Plain:
         from render_engine_tpu_torch.render import deferred_shade as DS
         from render_engine_tpu_torch.render import raster_pallas as RP
         from render_engine_tpu_torch.render import shade_pallas as SP
+        from render_engine_tpu_torch.render import tall_gbuffer as TG
 
         self.saved = [(RP, "tile_raster", RP.tile_raster),
                       (RP, "resolve_attributes_pallas",
                        RP.resolve_attributes_pallas),
                       (SP, "shade_tiles", SP.shade_tiles),
                       (DS, "deferred_shade", DS.deferred_shade),
+                      (TG, "tall_gbuffer", TG.tall_gbuffer),
                       (CG, "custom_gbuffer", CG.custom_gbuffer)]
         RP.tile_raster = RP.tile_raster_reference
         RP.resolve_attributes_pallas = (
@@ -465,6 +481,7 @@ class Plain:
             RP.resolve_attributes_reference(slot, rows))
         SP.shade_tiles = SP.fused_shade_reference
         DS.deferred_shade = DS.deferred_shade_reference
+        TG.tall_gbuffer = TG.tall_gbuffer_reference
         CG.custom_gbuffer = CG.custom_gbuffer_reference
         return self
 
@@ -1017,16 +1034,17 @@ def phase_slice(eng):
 
 
 def frame_launches(renders_map, resolve=1, tile_lists=0, deferred=0,
-                   custom=0):
+                   custom=0, tall=0):
     """The launches one frame must make: K1 twice when it renders a shadow
     map and once otherwise, K2 ``resolve`` times, K3 once (``tile_lists``:
     1 when it loops over lists), the default route's shading kernel
-    ``deferred`` times, the custom-shading hook's G-buffer kernel
-    ``custom`` times."""
+    ``deferred`` times and its G-buffer kernel ``tall`` times, the
+    custom-shading hook's G-buffer kernel ``custom`` times."""
     return {"tile_raster": 1 + int(renders_map),
             "tile_raster_one_pass": int(renders_map), "resolve": resolve,
             "fused_shade": 1, "fused_shade_tile_lists": tile_lists,
-            "deferred_shade": deferred, "custom_gbuffer": custom}
+            "deferred_shade": deferred, "tall_gbuffer": tall,
+            "custom_gbuffer": custom}
 
 
 def hold_kernels(eng, label, k3=False):
@@ -2155,7 +2173,7 @@ def phase_nonfused(eng, routes_path=None):
     import torch
 
     from render_engine_tpu_torch import kernels
-    from render_engine_tpu_torch.render import raster_pallas as RP
+    from render_engine_tpu_torch.render import tall_gbuffer as TG
     from render_engine_tpu_torch.render.frame import render_frame
     from render_engine_tpu_torch.runtime.profiling import turn_medians as tm
 
@@ -2173,19 +2191,21 @@ def phase_nonfused(eng, routes_path=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    with Capture(RP, "resolve_attributes_pallas",
-                 note=lambda slot, rows, *a, **kw: tuple(rows.shape)) as k2:
+    with Capture(TG, "tall_gbuffer", note=lambda layers, rows, *a, **kw: (
+            [la[0].shape[0] for la in layers], tuple(rows.shape))) as tall:
         img_n = nonfused()
         torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    want = dict(frame_launches(False, resolve=2), fused_shade=0)
-    log(f"[nonfused] launches in one frame: {launches}; K2 over "
-        f"{[c[0] for c in k2.calls]} tiles with rows {k2.calls[0]}; peak "
+    want = dict(frame_launches(False, resolve=0, tall=1), fused_shade=0)
+    tiles = [c[0] for c in tall.calls]
+    log(f"[nonfused] launches in one frame: {launches}; the tall G-buffers "
+        f"over {tiles} tiles with rows {[c[1] for c in tall.calls]}; peak "
         f"device memory {peak / 2**20:.0f} MiB")
-    if launches != want or [c[0] for c in k2.calls] != [nt, nt]:
+    if launches != want or tiles != [[nt, nt]]:
         raise RuntimeError(f"nonfused frame launched {launches}, expected "
-                           f"{want} with K2 over {nt} tiles twice")
+                           f"{want} with the tall G-buffers once over {nt} "
+                           "tiles of each layer")
     with Plain():
         img_p = nonfused()
     torch.cuda.synchronize()
@@ -2527,7 +2547,9 @@ def frame_profile(eng, frames):
             "tile_raster_one_pass": named("tile_raster_kernel<false>"),
             "resolve": named("resolve_kernel"),
             "fused_shade": named("fused_shade_kernel"),
-            "deferred_shade": named("deferred_shade_kernel")}
+            "deferred_shade": named("deferred_shade_kernel"),
+            "tall_gbuffer": named("tall_gbuffer_kernel"),
+            "custom_gbuffer": named("custom_gbuffer_kernel")}
     if any(seen[k] != counted[k] for k in seen):
         raise RuntimeError(f"the profiler saw {seen} kernels in {frames} "
                            f"frames, the launch counts say {counted}")
@@ -3077,8 +3099,8 @@ def route_engine(fused):
 
 def default_counted_run(eng):
     """WARMUP + TIMED captured frames from the reset state: each launches
-    K1 twice on map frames and once otherwise, K2 twice (every tile of
-    each layer), the shading kernel once and no K3; the image finite and
+    K1 twice on map frames and once otherwise, the tall G-buffer kernel and
+    the shading kernel once each and no K2 or K3; the image finite and
     lit; the 13 drop counters 0. Returns the launches, the median ms and
     the peak device memory."""
     import torch
@@ -3099,8 +3121,8 @@ def default_counted_run(eng):
         torch.cuda.synchronize()
         if i >= WARMUP:
             times.append((time.perf_counter() - t0) * 1e3)
-        want = dict(frame_launches(renders_map, resolve=2, deferred=1),
-                    fused_shade=0)
+        want = dict(frame_launches(renders_map, resolve=0, deferred=1,
+                                   tall=1), fused_shade=0)
         if launch_delta(before) != want:
             raise RuntimeError(f"[default-route] frame {i} launched "
                                f"{launch_delta(before)}, expected {want}")
@@ -3109,8 +3131,9 @@ def default_counted_run(eng):
     lit = float((img.amax(dim=-1) > 0.05).double().mean())
     med = statistics.median(times)
     log(f"[default-route] launches in {WARMUP + TIMED} captured frames: "
-        f"{launches} (K1 twice on map frames, once on the rest; K2 twice and "
-        f"deferred_shade once a frame; no K3); {TIMED} timed frames: median "
+        f"{launches} (K1 twice on map frames, once on the rest; "
+        f"tall_gbuffer and deferred_shade once a frame; no K2, no K3); "
+        f"{TIMED} timed frames: median "
         f"{med:.2f} ms/frame, "
         f"min {min(times):.2f}, max {max(times):.2f}; peak device memory "
         f"{peak / 2**20:.0f} MiB; image max {float(img.max()):.3f}, share "
@@ -3119,8 +3142,9 @@ def default_counted_run(eng):
             and lit > 1e-3):
         raise RuntimeError("[default-route] the image is not finite or "
                            "(nearly) blank")
-    missing = [k for k in ("tile_raster", "tile_raster_one_pass", "resolve",
-                           "deferred_shade") if launches[k] == 0]
+    missing = [k for k in ("tile_raster", "tile_raster_one_pass",
+                           "tall_gbuffer", "deferred_shade")
+               if launches[k] == 0]
     if missing:
         raise RuntimeError(f"[default-route] launched no {missing}")
     drops = eng.drop_stats()
@@ -3132,15 +3156,16 @@ def default_counted_run(eng):
 
 def hold_default_kernels(eng):
     """One eager frame of ``eng`` that renders a shadow map, every kernel
-    call's inputs captured: K1 in both modes and K2 over every tile of
-    each layer against their plain versions, exact; no K3; one call of the
-    shading kernel. Returns the opaque layer's K2 arguments and the
-    shading kernel's."""
+    call's inputs captured: K1 in both modes against its plain version,
+    exact; one call of the tall G-buffer kernel over every tile of both
+    layers and none of K2 or K3; one call of the shading kernel. Returns
+    the tall G-buffer kernel's arguments and the shading kernel's."""
     import torch
 
     from render_engine_tpu_torch.render import deferred_shade as DS
     from render_engine_tpu_torch.render import raster_pallas as RP
     from render_engine_tpu_torch.render import shade_pallas as SP
+    from render_engine_tpu_torch.render import tall_gbuffer as TG
 
     nt = -(-SLICE["height"] // 8) * -(-SLICE["width"] // 128)
     interval = eng.config.shadow_update_interval
@@ -3149,30 +3174,85 @@ def hold_default_kernels(eng):
     with Eager(eng), Capture(RP, "tile_raster") as k1, \
             Capture(RP, "resolve_attributes_pallas") as k2, \
             Capture(SP, "shade_tiles") as k3, \
+            Capture(TG, "tall_gbuffer") as tall, \
             Capture(DS, "deferred_shade") as ds:
         eng.frame(None, DT)
     modes = [kw["two_pass"] for _, kw in k1.calls]
-    tiles = [a[0].shape[0] for a, _ in k2.calls]
-    if (modes != [False, True] or tiles != [nt, nt] or k3.calls
-            or len(ds.calls) != 1):
+    tiles = [[la[0].shape[0] for la in a[0]] for a, _ in tall.calls]
+    if (modes != [False, True] or tiles != [[nt, nt]] or k2.calls
+            or k3.calls or len(ds.calls) != 1):
         raise RuntimeError(f"[default-route] K1 calls with two_pass {modes}, "
-                           f"K2 over {tiles} tiles, {len(k3.calls)} K3 calls, "
-                           f"{len(ds.calls)} deferred_shade calls")
+                           f"tall_gbuffer over {tiles} tiles, "
+                           f"{len(k2.calls)} K2 calls, {len(k3.calls)} K3 "
+                           f"calls, {len(ds.calls)} deferred_shade calls")
     for (a, kw), name in zip(k1.calls, ("K1 one-pass", "K1")):
         err = check_close(f"default-route {name}", RP.tile_raster(*a, **kw),
                           RP.tile_raster_reference(*a, **kw), 0.0)
         log(f"[default-route] {name} on this frame's inputs (data "
             f"{tuple(a[0].shape)}): max_abs_err {err:.3g} (exact)")
-    for (a, _), layer in zip(k2.calls, ("opaque", "transparent")):
-        err = check_close(f"default-route K2 {layer}",
-                          [RP.resolve_attributes_pallas(*a)],
-                          [RP.resolve_attributes_reference(*a)], 0.0)
-        log(f"[default-route] K2 over every tile of the {layer} layer (slot "
-            f"{tuple(a[0].shape)}, rows {tuple(a[1].shape)}, covered pixels "
-            f"{float((a[0] >= 0).double().mean()):.4f}): max_abs_err "
-            f"{err:.3g} (exact)")
     torch.cuda.synchronize()
-    return k2.calls[0][0], ds.calls[0]
+    return tall.calls[0], ds.calls[0]
+
+
+def tall_planes(out):
+    """The planes of ``tall_gbuffer``'s result by name, layer after layer
+    (the G-buffer's, then every key of the extras)."""
+    planes = {}
+    for i, layer in enumerate(("opaque", "transparent")):
+        gbuf, extras = out[2 * i], out[2 * i + 1]
+        for f in dataclasses.fields(gbuf):
+            planes[f"{layer} {f.name}"] = getattr(gbuf, f.name)
+        for k, v in extras.items():
+            planes[f"{layer} {k}"] = v
+    return planes
+
+
+def tall_agreement(args, kw):
+    """The tall G-buffer kernel against its plain version on every plane
+    and every pixel of both layers: the same keys, each plane's largest
+    difference and differing values (TALL_TOL: equal to the bit)."""
+    import torch
+
+    from render_engine_tpu_torch.render import tall_gbuffer as TG
+
+    got = tall_planes(TG.tall_gbuffer(*args, **kw))
+    want = tall_planes(TG.tall_gbuffer_reference(*args, **kw))
+    torch.cuda.synchronize()
+    if list(got) != list(want):
+        raise RuntimeError(f"[default-route] tall_gbuffer gives the planes "
+                           f"{list(got)}, its plain version {list(want)}")
+    rows = []
+    for k in want:
+        diff = (got[k].double() - want[k].double()).abs()
+        rows.append(f"{k} {float(diff.max()):.3g} ({int((diff > 0).sum())})")
+    covered = [float((want[f"{la} tri_id"] >= 0).double().mean())
+               for la in ("opaque", "transparent")]
+    log(f"[default-route] tall_gbuffer vs plain version, headline frame "
+        f"(slot {tuple(args[0][0][0].shape)} a layer, rows "
+        f"{tuple(args[1].shape)}, covered opaque {covered[0]:.4f}, "
+        f"transparent {covered[1]:.4f}), every pixel of both layers: max "
+        f"abs diff (values differing): {'; '.join(rows)} (tolerance "
+        f"{TALL_TOL})")
+    check_close("default-route tall_gbuffer", list(got.values()),
+                list(want.values()), TALL_TOL)
+
+
+def tall_record(args, kw):
+    """``tall_agreement`` on the headline frame's arguments, then the
+    kernel's record: device ms, the plain version's, bound and share."""
+    from render_engine_tpu_torch import kernel_bounds as KB
+    from render_engine_tpu_torch.render import tall_gbuffer as TG
+
+    tall_agreement(args, kw)
+    work = KB.tall_gbuffer_work(*args, **kw)
+    log(f"[default-route] tall_gbuffer inputs: covered pixels "
+        f"{work['covered_pixels']}, distinct rows {work['rows']}, shininess "
+        f"plane {kw['spec_packed']}")
+    return kernel_record(
+        "tall_gbuffer", TALL_TOL,
+        lambda: list(tall_planes(TG.tall_gbuffer(*args, **kw)).values()),
+        lambda: list(tall_planes(
+            TG.tall_gbuffer_reference(*args, **kw)).values()), work)
 
 
 def deferred_agreement(got, want):
@@ -3344,9 +3424,9 @@ def deferred_frames(eng):
 
 
 def phase_default_route():
-    """Phase 16 (module docstring). Returns the K2 and shading-kernel
-    records of the route, the launches of its counted run and the run's
-    frame count."""
+    """Phase 16 (module docstring). Returns the K2, shading-kernel and tall
+    G-buffer records of the route, the launches of its counted run and the
+    run's frame count."""
     import torch
 
     from render_engine_tpu_torch import kernel_bounds as KB
@@ -3360,10 +3440,14 @@ def phase_default_route():
     launches, med, peak = default_counted_run(eng)
     routes = captured_vs_eager("default route (fused_shading=False) "
                                "1080p/10k, shadows", eng, drive_routes)
-    a2, (a_ds, kw_ds) = hold_default_kernels(eng)
+    (a_tg, kw_tg), (a_ds, kw_ds) = hold_default_kernels(eng)
+    rec_tg = tall_record(a_tg, kw_tg)
     frame_through_plain(eng, "default-route", "whole 1080p frame with "
                         "shadows on the default route")
     rec_ds = deferred_record(a_ds, kw_ds)
+    # K2 over every tile of the opaque layer, as the tall G-buffers' plain
+    # version runs it, on the same slot plane
+    a2 = (a_tg[0][0][0], a_tg[1])
     rec = kernel_record(
         "resolve_nonfused", 0.0,
         lambda: [RP.resolve_attributes_pallas(*a2)],
@@ -3377,8 +3461,8 @@ def phase_default_route():
         f"launches a frame ({api}), {prof['device_kernels']:.1f} device "
         f"rows a frame summing to {prof['device_ms']:.3f} ms; the device "
         f"busy {prof['busy_share']:.4f} of the traced window of "
-        f"{prof['window_ms']:.3f} ms a frame; K1, K2 and K3 in the trace in "
-        f"{PROFILE_FRAMES} frames: {prof['kernels_seen']}; the rows that "
+        f"{prof['window_ms']:.3f} ms a frame; the hand kernels in the trace "
+        f"in {PROFILE_FRAMES} frames: {prof['kernels_seen']}; the rows that "
         "take the most device time (ms and count a frame): " + "; ".join(
             f"{k} {ms:.3f} ({n:.0f})" for k, ms, n in prof["top"]))
     fused = route_engine(fused=True)
@@ -3418,7 +3502,7 @@ def phase_default_route():
     log(json.dumps({"default_route": out}))
     del eng, fused, engines
     torch.cuda.empty_cache()
-    return rec, rec_ds, launches, WARMUP + TIMED
+    return rec, rec_ds, rec_tg, launches, WARMUP + TIMED
 
 
 def main() -> int:
@@ -3490,23 +3574,25 @@ def main() -> int:
     phase_programs()
     phase_partitioned()
     launches_m = phase_mesh()
-    rec_d, rec_ds, launches_d, frames_d = phase_default_route()
+    rec_d, rec_ds, rec_tg, launches_d, frames_d = phase_default_route()
     # the branch rows take their launches from their own phase's run; the
-    # default route's K2 launches are all over every tile
+    # default route launches no K2 (phase 16 holds it to 0 there)
     launches_d["resolve_nonfused"] = launches_d["resolve"]
     rec.update(resolve_full_frame=rec_c, fused_shade_tile_lists=rec_l,
-               resolve_nonfused=rec_d, deferred_shade=rec_ds,
-               custom_gbuffer=rec_cg)
+               resolve_nonfused=rec_d, tall_gbuffer=rec_tg,
+               deferred_shade=rec_ds, custom_gbuffer=rec_cg)
     # K2 over every tile no longer runs on the custom frame (phase 8 holds
-    # it to 0 there); its launches are the non-fused frame's (below)
+    # it to 0 there), nor on the non-fused frame (phase 12)
     for name, run, n in (("resolve_full_frame", launches_c, frames_c),
                          ("fused_shade_tile_lists", launches_l, frames_l),
                          ("resolve_nonfused", launches_d, frames_d),
+                         ("tall_gbuffer", launches_d, frames_d),
                          ("deferred_shade", launches_d, frames_d),
                          ("custom_gbuffer", launches_c, frames_c)):
         launches[name] = run[name]
         per_frame[name] = run[name] / n
-        if run[name] == 0 and name != "resolve_full_frame":
+        if run[name] == 0 and name not in ("resolve_full_frame",
+                                           "resolve_nonfused"):
             raise RuntimeError(f"{name}: no launch on its path")
 
     kern = [dict(name=n, route="cuda", source=src, replaces=rep,
@@ -3514,10 +3600,12 @@ def main() -> int:
                  replay_launches=replay_launches.get(key, 0),
                  sharded_frame_launches=launches_m.get(key, 0), **rec[n])
             for n, (key, src, rep) in KERNELS.items()]
-    # K2 over every tile also carries the non-fused frame (phase 12): two
-    # launches over every tile, one of each layer
+    # the non-fused frame (phase 12): K2 over every tile none, the tall
+    # G-buffers once for both layers
     kern[list(KERNELS).index("resolve_full_frame")]["nonfused_launches"] = \
         launches_n["resolve"]
+    kern[list(KERNELS).index("tall_gbuffer")]["nonfused_launches"] = \
+        launches_n["tall_gbuffer"]
     log(json.dumps({"kernels": kern}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -46,15 +46,12 @@
 // ms at 3.35 TB/s (kernel_bounds.custom_gbuffer_work), against the chain's
 // 2 x 531 MB of K2 output alone.
 //
-// Rounding: built with -fmad=false (kernels.py), every product and sum
-// rounds on its own, as the chain's separate PyTorch operations do on the
-// card, so no explicit __fmul_rn / __fadd_rn is needed; a division by a
-// Python number multiplies by its reciprocal (PyTorch's CUDA division by a
-// host scalar); `1.0 / x` is a true division (PyTorch's reciprocal); the
-// vector norm and the sums over three channels take PyTorch's order
-// (shade_math.cuh).
+// Rounding: the interpolation (barycentrics, unprojection, normal, uv) is
+// gbuffer_interp.cuh's, which the default route's tall_gbuffer.cu shares;
+// built with -fmad=false (kernels.py), every product and sum rounds on its
+// own, as the chain's separate PyTorch operations do on the card.
 
-#include "shade_math.cuh"
+#include "gbuffer_interp.cuh"
 
 namespace rek {
 
@@ -102,50 +99,12 @@ __device__ void owned_pixel(const CustomArgs& A, int layer, int t, size_t p,
       A.rows + (static_cast<size_t>(t) * A.k + (hit ? s : 0)) * A.a;
   auto ch = [&](int c) { return hit ? __ldg(row + c) : 0.0f; };
 
-  // raster_pallas._tall_pixel_centers: (origin + index) + 0.5
-  const float px = (static_cast<float>((t % A.tiles_x) * A.tw) +
-                    static_cast<float>(lx)) + 0.5f;
-  const float py = (static_cast<float>((t / A.tiles_x) * A.th) +
-                    static_cast<float>(ly)) + 0.5f;
-
-  // the perspective-correct barycentrics at the band-local pixel center
-  const float x0 = ch(0), y0 = ch(1), x1 = ch(2), y1 = ch(3), x2 = ch(4),
-              y2 = ch(5);
-  const float l0 = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1);
-  const float l1 = (x0 - x2) * (py - y2) - (y0 - y2) * (px - x2);
-  const float l2 = (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0);
-  const float area = (l0 + l1) + l2;
-  const float inv_area = 1.0f / (fabsf(area) > 1e-12f ? area : 1.0f);
-  const float w0 = (l0 * inv_area) * ch(25);
-  const float w1 = (l1 * inv_area) * ch(26);
-  const float w2 = (l2 * inv_area) * ch(27);
-  const float den = (w0 + w1) + w2;
-  const float inv_d = 1.0f / (fabsf(den) > 1e-12f ? den : 1.0f);
-  const float b0 = w0 * inv_d, b1 = w1 * inv_d, b2 = w2 * inv_d;
-
-  // the world position: the global row's NDC through inv(proj_view)
-  const float inv_wd = 1.0f / static_cast<float>(A.width);
-  const float inv_ht = 1.0f / static_cast<float>(A.h_total);
-  const float ndc_x = (px * inv_wd) * 2.0f - 1.0f;
-  const float ndc_y = 1.0f - ((py + A.y_off) * inv_ht) * 2.0f;
-  float wp[4];
-  for (int r = 0; r < 4; ++r) {
-    const float* m = A.inv_pv + r * A.ipv_s0;
-    wp[r] = ((__ldg(m) * ndc_x + __ldg(m + A.ipv_s1) * ndc_y) +
-             __ldg(m + 2 * A.ipv_s1) * d) +
-            __ldg(m + 3 * A.ipv_s1);
-  }
-  const float inv_w = 1.0f / (fabsf(wp[3]) > 1e-12f ? wp[3] : 1.0f);
-  *pos = {wp[0] * inv_w, wp[1] * inv_w, wp[2] * inv_w};
-
-  V3 n;
-  float* nc = &n.x;
-  for (int c = 0; c < 3; ++c) {
-    nc[c] = (b0 * ch(10 + c) + b1 * ch(13 + c)) + b2 * ch(16 + c);
-  }
-  n = unit(n, 1e-12f);
-  const float u = (b0 * ch(19) + b1 * ch(21)) + b2 * ch(23);
-  const float v = (b0 * ch(20) + b1 * ch(22)) + b2 * ch(24);
+  const PixelInterp g = interpolate(
+      ch, tall_center((t % A.tiles_x) * A.tw, lx),
+      tall_center((t / A.tiles_x) * A.th, ly), A.y_off, d, A.inv_pv, A.ipv_s0,
+      A.ipv_s1, A.width, A.h_total);
+  V3 n = g.nrm;
+  const float u = g.u, v = g.v;
   *mat = static_cast<int>(ch(28));
   V3 albedo = {ch(29), ch(30), ch(31)};
 
@@ -159,6 +118,7 @@ __device__ void owned_pixel(const CustomArgs& A, int layer, int t, size_t p,
     }
     if (tx[0] >= 0) albedo = sample_texture(at, tx[0], u, v);
   }
+  *pos = g.pos;
   *nrm = n;
   *alb = albedo;
 }

@@ -339,3 +339,33 @@ def custom_gbuffer_work(layers, rows, tri_sys, sys_shaded, inv_pv, bank,
             "ops": CG_OPS_PER_PIXEL * owned + DS_OPS_PER_SAMPLE * samples,
             "owned_pixels": owned, "rows": n_rows, "atlas_texels": texels,
             "atlas_samples": samples}
+
+
+TG_PIXEL_BYTES = 64  # the winner id in; position, normal, albedo, material,
+# uv, emissive, alpha and specular out
+TG_SHIN_BYTES = 4  # the shininess plane, with packed (spec, Ns) rows
+TG_COVERED_BYTES = 8  # a covered pixel's slot and depth
+TG_ROW_FLOATS = 31  # channels 0-5 and 10-34 of a winner's row
+TG_OPS_PER_PIXEL = 115  # CG_OPS_PER_PIXEL and the spec/Ns unpacking
+
+
+def tall_gbuffer_work(layers, rows, inv_pv, *, tiles_x, width, height,
+                      spec_packed):
+    """The default route's G-buffer kernel, both layers: 64 B per pixel
+    (its winner id read, its planes written; 68 with a shininess plane);
+    for each covered pixel its slot and depth (8 B), and once each distinct
+    winner row's 31 channels. Operations: about 115 per covered pixel."""
+    nt, th, tw = layers[0][0].shape
+    k = rows.shape[1]
+    tile = torch.arange(nt, device=rows.device)[:, None, None]
+    covered, keys = 0, []
+    for slot, _, winner in layers:
+        cov = winner >= 0
+        covered += int(cov.sum())
+        keys.append((tile * k + slot)[cov & (slot >= 0) & (slot < k)])
+    n_rows = int(torch.unique(torch.cat(keys)).numel())
+    pixel = TG_PIXEL_BYTES + (TG_SHIN_BYTES if spec_packed else 0)
+    return {"bytes": 2 * nt * th * tw * pixel + covered * TG_COVERED_BYTES
+            + n_rows * TG_ROW_FLOATS * 4,
+            "ops": TG_OPS_PER_PIXEL * covered, "covered_pixels": covered,
+            "rows": n_rows}

@@ -3,10 +3,12 @@ and Blinn-Phong of both layers over the tall G-buffers, packed for the
 compose.
 
 ``render/frame.py`` ``_render_frame_tiled`` (the non-fused tiled path) calls
-``deferred_shade`` after ``raster_pallas.gbuffers_tall``. For CUDA tensors
-it launches ``csrc/deferred_shade.cu``, one thread per pixel of the tall
-layout; for CPU tensors it runs ``deferred_shade_reference``, the plain
-version: ``texture_gbuffer`` per layer, ``shadows.make_shadow_factor``,
+``deferred_shade`` after ``raster_pallas.gbuffers_tall``, which builds the
+planes of every pixel (on a card one ``tall_gbuffer`` kernel for both
+layers); the shading kernel reads them where a layer is covered. For CUDA
+tensors it launches ``csrc/deferred_shade.cu``, one thread per pixel of
+the tall layout; for CPU tensors it runs ``deferred_shade_reference``, the
+plain version: ``texture_gbuffer`` per layer, ``shadows.make_shadow_factor``,
 ``lighting.shade`` per layer and one ``torch.cat``. The JAX package leaves
 this route to XLA, so the kernel replaces no Pallas kernel. A frame with a
 ``shadow_factor`` callback (a Python function, which no kernel can call)

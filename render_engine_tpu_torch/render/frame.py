@@ -18,8 +18,10 @@ rows, skybox toggle), then takes one of three paths, as the JAX package's
 * the non-fused tiled path (every other call on a tiled backend: the
   default ``fused_shading=False``, or a custom ``shadow_factor``, which
   cannot run inside a kernel's light loop): ``_render_frame_tiled`` runs
-  K1 and K2 over every tile of both layers (``raster_pallas.gbuffers_tall``),
-  then ``deferred_shade`` (the atlas, the shadow maps' PCF factor and
+  K1, then the tall G-buffers and shading planes of both layers in one
+  kernel that reads each covered pixel's winner row in place
+  (``raster_pallas.gbuffers_tall``, ``tall_gbuffer``; no K2), then
+  ``deferred_shade`` (the atlas, the shadow maps' PCF factor and
   Blinn-Phong of both layers in one kernel; with a callback, its plain
   version: ``shadows.make_shadow_factor``'s place taken by the callback,
   ``lighting.shade`` per layer) and the compose;
@@ -34,8 +36,9 @@ candidate rows, K1), ``render.resolve`` (K2 with the texture override),
 non-fused path ``deferred_shade``), ``render.custom`` (custom shading,
 only where a system has a shading function) and ``render.compose``; and
 the frame keeps two of its counters, ``triangle_budget_dropped`` and
-``tile_candidate_dropped`` (``profiling.count``), and on the fused path
-with custom shading the three of ``CUSTOM_COUNTERS``.
+``tile_candidate_dropped`` (``profiling.count``), on the fused path with
+custom shading the three of ``CUSTOM_COUNTERS``, and on the non-fused path
+``gbuffer_tiles_resolved`` (``WORK_COUNTERS``).
 """
 
 from __future__ import annotations
@@ -70,6 +73,10 @@ BACKENDS = ("auto", "pallas", "jnp")
 # the fused route's custom-shading counters (``_count_custom``)
 CUSTOM_COUNTERS = ("custom_tiles_resolved", "custom_tiles_owned",
                    "custom_pixels")
+# the counters of a frame's work, beside its drop counters: the custom
+# shading's and the non-fused path's tiles in which the G-buffer kernel
+# read a candidate row (``tall_gbuffer.count_resolved``)
+WORK_COUNTERS = CUSTOM_COUNTERS + ("gbuffer_tiles_resolved",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,8 +299,9 @@ def _render_frame_tiled(world, camera, bank, settings, *, batch, lights,
                         background, ent_attrs, atlas, shadow_state,
                         shadow_factor, systems, draw_ctx) -> torch.Tensor:
     """The non-fused tiled path: the G-buffers and shading planes of both
-    layers in the tall tile layout (``raster_pallas.gbuffers_tall``), the
-    atlas, the shadow factor and Blinn-Phong of both layers packed for the
+    layers in the tall tile layout (``raster_pallas.gbuffers_tall``: K1,
+    then one ``tall_gbuffer`` kernel for both layers), the atlas, the
+    shadow factor and Blinn-Phong of both layers packed for the
     compose (``deferred_shade``: the kernel, with the PCF factor of
     ``shadow_state``'s maps; with a ``shadow_factor`` callback given, the
     plain version with it), custom shading, then one untile of what the

@@ -19,9 +19,12 @@ Kernel contracts (unchanged from the JAX package):
 * K2 ``resolve_attributes(slot (TB,th,tw) i32, rows (TB,K,A) f32)``:
   ``out[a, t, y, x] = rows[t, slot[t, y, x], a]``, 0 where slot < 0.
 
-``gbuffers_tall`` joins them into the non-fused frame's G-buffers (one
-binning, one K1 launch, K2 over every tile of each layer) in the tall tile
-layout, with the shading planes that path hands ``lighting.shade``;
+``gbuffers_tall`` builds the non-fused frame's G-buffers in the tall tile
+layout (one binning, one K1 launch, then ``tall_gbuffer``: on a card one
+kernel, csrc/tall_gbuffer.cu, reads each covered pixel's winner row in
+place for both layers; its plain version is K2 over every tile of each
+layer with ``_gbuffer_from_channels`` and ``_shading_planes``), with the
+shading planes that path hands ``deferred_shade``;
 ``render_gbuffers_pallas`` untiles them to the image.
 """
 
@@ -573,14 +576,18 @@ def _shading_planes(ch, winner, spec_packed=False):
 def gbuffers_tall(batch: TriangleBatch, bank, height: int, width: int,
                   cfg, inv_proj_view, ent_attrs=None):
     """The non-fused frame's G-buffers in the tall tile layout (NT * th,
-    tw): one binning, one two-pass K1 launch and K2 over every tile of each
-    layer. ``(gbuf, extras, t_gbuf, t_extras)``, each ``extras`` holding
-    ``uv`` and the shading planes (``_shading_planes``). Positions
-    unproject through ``inv_proj_view``; ``ent_attrs`` are the render
-    systems' per-entity rows, folded into the triangles' rows."""
+    tw): one binning, one two-pass K1 launch, then ``tall_gbuffer`` over
+    both layers (csrc/tall_gbuffer.cu on a card: each covered pixel's
+    winner row read in place, no K2). ``(gbuf, extras, t_gbuf, t_extras)``,
+    each ``extras`` holding ``uv`` and the shading planes
+    (``_shading_planes``). Positions unproject through ``inv_proj_view``;
+    ``ent_attrs`` are the render systems' per-entity rows, folded into the
+    triangles' rows. A traced program keeps ``gbuffer_tiles_resolved``
+    (``tall_gbuffer.count_resolved``)."""
+    from render_engine_tpu_torch.render import tall_gbuffer as TG
+
     th, tw = cfg.tile_h, cfg.tile_w
     tiles_x, tiles_y = -(-width // tw), -(-height // th)
-    nt = tiles_x * tiles_y
     tri_class = _tri_class(batch)
     cand, counts, *dropped = _candidate_table(batch, cfg, tiles_x, tiles_y,
                                               tri_class,
@@ -591,18 +598,11 @@ def gbuffers_tall(batch: TriangleBatch, bank, height: int, width: int,
         _packed_tri_table(batch, bank, tri_class, ent_attrs=ent_attrs), cand)
     d, w, s, td, twi, ts = _launch(batch, height, width, cfg, tri_class,
                                    two_pass=True, cand=cand, counts=counts)
-    px, py = _tall_pixel_centers(torch.arange(nt, device=batch.xy.device),
-                                 tiles_x, th, tw)
-    spk = bank.uniform_shininess() is None
-    out = []
-    for depth, winner, slot in ((d, w, s), (td, twi, ts)):
-        ch = resolve_attributes_pallas(slot, rows).reshape(-1, nt * th, tw)
-        winner = winner.reshape(nt * th, tw)
-        gbuf, extras = _gbuffer_from_channels(
-            ch, depth.reshape(nt * th, tw), winner, height, width,
-            inv_proj_view, px=px, py=py)
-        out += [gbuf, {**extras, **_shading_planes(ch, winner, spk)}]
-    return tuple(out)
+    if P.armed():
+        TG.count_resolved((w, twi), kernel_route=rows.device.type == "cuda")
+    return TG.tall_gbuffer(((s, d, w), (ts, td, twi)), rows, inv_proj_view,
+                           tiles_x=tiles_x, width=width, height=height,
+                           spec_packed=bank.uniform_shininess() is None)
 
 
 def render_gbuffers_pallas(batch: TriangleBatch, bank, height: int,

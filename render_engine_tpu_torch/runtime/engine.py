@@ -89,7 +89,7 @@ from render_engine_tpu_torch.render import lighting as LG
 from render_engine_tpu_torch.render import raster_pallas as RP
 from render_engine_tpu_torch.render import shade_pallas as SP
 from render_engine_tpu_torch.render import shadows as SH
-from render_engine_tpu_torch.render.frame import (CUSTOM_COUNTERS,
+from render_engine_tpu_torch.render.frame import (WORK_COUNTERS,
                                                   RenderSettings,
                                                   render_frame,
                                                   shadow_tile_overflow)
@@ -634,8 +634,8 @@ class Engine:
         a step: the shadow update, then the render), ``_update_shadow``
         (the update alone) and ``_frame_fused`` (step, update and render).
         They render through ``render_frame``, on the route the settings
-        pick: K3 with ``fused_shading=True``, else K2 over every tile and
-        ``lighting.shade`` (the JAX package's default). Allocates the
+        pick: K3 with ``fused_shading=True``, else the tall G-buffers of
+        every tile and the shading stage (the JAX package's default). Allocates the
         static image at the settings' size."""
         bank, settings = self.bank, self.config.render
         cubemap, atlas, systems = self.cubemap, self.atlas, \
@@ -853,7 +853,10 @@ class Engine:
         card those in which the G-buffer kernel read a candidate row, on
         the CPU every tile), ``custom_tiles_owned`` (those holding an owned
         pixel of a shading system, counted per layer) and ``custom_pixels``
-        (those pixels, both layers), read the same way."""
+        (those pixels, both layers), read the same way; where it renders
+        on the non-fused route, ``gbuffer_tiles_resolved`` (the tiles of
+        both layers in which the G-buffer kernel read a candidate row, those
+        holding a covered pixel; on the CPU every tile)."""
         tr = self._trace
         if tr is None:
             return {"frames": [], "counters": {}}
@@ -869,7 +872,7 @@ class Engine:
             "capture_s": float(sum(self.capture_seconds().values())),
             "step_drops": unpack_drop_stats(self._state.drops),
             "render_drops": self._render_counters(program)}
-        counters.update({k: program[k] for k in CUSTOM_COUNTERS
+        counters.update({k: program[k] for k in WORK_COUNTERS
                          if k in program})
         return {"frames": tr.frames(), "counters": counters}
 
@@ -889,7 +892,7 @@ class Engine:
         if program is None:
             program = self._program_counters()
         return {k: v for k, v in program.items()
-                if k not in CUSTOM_COUNTERS}
+                if k not in WORK_COUNTERS}
 
     def export_spans(self, path: str) -> dict:
         """``trace_report()`` written to ``path`` as JSON lines (the

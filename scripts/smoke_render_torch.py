@@ -9,8 +9,8 @@ Builds the JAX script's scene (a 64-row world of five entities, their
 AABBs refreshed), renders one 320x240 frame with ``max_tris=4096`` and a
 ``starfield_cubemap(64)`` sky twice (the first call builds the kernels)
 through the JAX script's settings, so through the default non-fused
-tiled route (``fused_shading=False``: K1, K2 over every tile of both
-layers and ``lighting.shade``), as ``smoke_render.py`` renders on a TPU,
+tiled route (``fused_shading=False``: K1, the tall G-buffers of both
+layers and the shading stage), as ``smoke_render.py`` renders on a TPU,
 prints the image's statistics and writes ``<DIR>/smoke_torch.png``. It
 runs on the card and raises where there is none; ``--device cpu`` runs
 the kernels' plain versions. ``--out`` defaults to ``debug_out``.

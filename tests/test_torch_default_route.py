@@ -1,6 +1,7 @@
 """The JAX package's default render route, ``RenderSettings(fused_shading=
-False)``, in the port: the non-fused tiled frame (K1, K2 over every tile of
-both layers, ``lighting.shade``) taken by ``render_frame`` without a
+False)``, in the port: the non-fused tiled frame (K1, the tall G-buffers
+of both layers over every tile, ``tall_gbuffer``, and the shading stage)
+taken by ``render_frame`` without a
 callback, its shadows from the shadow maps (``shadows.make_shadow_factor``),
 and the Engine's programs on that route.
 
@@ -59,6 +60,7 @@ from render_engine_tpu_torch.render import frame as FT
 from render_engine_tpu_torch.render import raster_pallas as RPT
 from render_engine_tpu_torch.render import render_system as RST
 from render_engine_tpu_torch.render import shade_pallas as SPT
+from render_engine_tpu_torch.render import tall_gbuffer as TG
 from render_engine_tpu_torch.render.raster_jnp import RasterConfig as RCT
 from render_engine_tpu_torch.runtime.config import EngineConfig
 from render_engine_tpu_torch.runtime.history import HistoryLog
@@ -93,18 +95,19 @@ def default(st, **kw):
 
 @pytest.fixture
 def counted(monkeypatch):
-    """The resolves' tile counts of each frame rendered; K3 refused."""
+    """The tile counts of each layer the tall G-buffers resolve, frame
+    after frame; K3 refused."""
     resolved = []
-    real = RPT.resolve_attributes_pallas
+    real = TG.tall_gbuffer
 
-    def spy(slot, rows, cfg=None):
-        resolved.append(slot.shape[0])
-        return real(slot, rows)
+    def spy(layers, *a, **kw):
+        resolved.extend(slot.shape[0] for slot, _, _ in layers)
+        return real(layers, *a, **kw)
 
     def no_k3(*a, **kw):
         raise AssertionError("K3 ran on the default route")
 
-    monkeypatch.setattr(RPT, "resolve_attributes_pallas", spy)
+    monkeypatch.setattr(TG, "tall_gbuffer", spy)
     monkeypatch.setattr(SPT, "shade_tiles", no_k3)
     return resolved
 

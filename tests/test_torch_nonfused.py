@@ -1,6 +1,7 @@
 """The non-fused tiled path, the route of a custom ``shadow_factor`` on the
-tiled backends: K1 and K2 over every tile of both layers, the G-buffers in
-the tall tile layout and ``lighting.shade``, held to the JAX package's
+tiled backends: K1, the G-buffers of both layers in the tall tile layout
+(``tall_gbuffer``: K2 over every tile and its chain on the CPU) and
+``lighting.shade``, held to the JAX package's
 ``backend="pallas", fused_shading=False`` frame (interpret mode, CPU) and
 to the port's own fused frame. The port reaches the path with a callback
 that shadows nothing (``unshadowed``) or with the callback its golden path
@@ -46,6 +47,7 @@ from render_engine_tpu_torch.render import raster_pallas as RPT
 from render_engine_tpu_torch.render import render_system as RST
 from render_engine_tpu_torch.render import shade_pallas as SPT
 from render_engine_tpu_torch.render import shadows as SHT
+from render_engine_tpu_torch.render import tall_gbuffer as TG
 from render_engine_tpu_torch.render.raster_jnp import RasterConfig as RCT
 
 import test_torch_partial_tiles as TPT
@@ -266,8 +268,9 @@ def test_shadowed_nonfused_frame_matches_fused_frame(shadowed):
 
 def test_custom_shadow_factor_takes_the_nonfused_path(shadowed, monkeypatch):
     """On the default backend a ``shadow_factor`` callback renders through
-    K1, K2 over every tile of both layers and ``lighting.shade``: K3 never
-    runs, and the frame is JAX's non-fused frame with the same callback."""
+    K1, the tall G-buffers of both layers over every tile
+    (``tall_gbuffer``) and ``lighting.shade``: K3 never runs, and the frame
+    is JAX's non-fused frame with the same callback."""
     import jax.numpy as jnp
 
     w, bank, cam, _ = shadowed["t"]
@@ -281,16 +284,16 @@ def test_custom_shadow_factor_takes_the_nonfused_path(shadowed, monkeypatch):
         return jnp.where(pos[..., 0:1] < 64.0, 0.5, 1.0)
 
     resolved = []
-    real = RPT.resolve_attributes_pallas
+    real = TG.tall_gbuffer
 
-    def spy(slot, rows, cfg=None):
-        resolved.append(slot.shape[0])
-        return real(slot, rows)
+    def spy(layers, *a, **kw):
+        resolved.extend(slot.shape[0] for slot, _, _ in layers)
+        return real(layers, *a, **kw)
 
     def no_k3(*a, **kw):
         raise AssertionError("K3 ran on the non-fused path")
 
-    monkeypatch.setattr(RPT, "resolve_attributes_pallas", spy)
+    monkeypatch.setattr(TG, "tall_gbuffer", spy)
     monkeypatch.setattr(SPT, "shade_tiles", no_k3)
     got = FT.render_frame(w, cam, bank, st, shadow_factor=factor)
     nt = -(-WIDTH // 128) * -(-H // 8)
