@@ -42,7 +42,14 @@ Phases (any failure exits non-zero; no phase catches its own):
              replay with the detached camera (Esc, then W and a mouse
              turn): the same hashes, finite images unlike the live ones;
              then past the end, Up (one live frame, paused) and Right
-             (RUN).
+             (RUN). Then, with deterministic algorithms off, 10,000
+             headline frames recorded headless (each followed by the
+             engine's shadow update), flushed, loaded and replayed on a
+             fresh engine with the detached camera, every frame rendered,
+             each Player.step after warm-up under sync debug mode
+             "error": the world hash after every frame and the shadow
+             state at the end equal the live run's, and no program is
+             captured after warm-up.
   7. lights  the many-lights configuration: 1280x720, 200 asteroids, 256
              point lights made from a seed (radii 40 to 90), 268 light-table
              rows, light_tile_budget 96, two render systems. K1 (both
@@ -269,6 +276,10 @@ REPLAY_RENDER = (True, True, False, True, False, True, True, False, True,
 REPLAY_FUSED_AT = 4
 REPLAY_DRAW_AT, REPLAY_DRAW_DISTANCE = 6, 1200.0
 REPLAY_BIG_SEED_AT = 2
+# phase 6, with deterministic algorithms off: the headline's recording of
+# so many frames replayed with a detached camera (BASELINE.json config 5)
+REPLAY_LONG = 10000
+REPLAY_LONG_STRETCH = 300  # frames of W and a mouse turn, then of idle
 RECORD_TURNS, TURN_FRAMES = ("off", "on", "on", "off") * 5, 10
 CAPTURE_FRAME = 3  # frames 0 and 3 render maps at interval 3: both slots
 # phase 7: the many-lights configuration at its full size
@@ -1285,11 +1296,122 @@ def replay_detached(eng2, history, live):
         "frame (ONE_PAST_LAST_PAUSE), Right resumed RUN")
 
 
+def long_inputs(i):
+    """Frame i of the long recording: idle and W with a mouse turn in
+    turns of REPLAY_LONG_STRETCH frames, each frame its own seed."""
+    import numpy as np
+
+    from render_engine_tpu_torch.logic.types import KEY_W, InputState
+
+    inp = InputState.idle((i * 2654435761 + 12345) & 0xFFFFFFFF)
+    if (i // REPLAY_LONG_STRETCH) % 2:
+        return dataclasses.replace(
+            inp.with_keys(KEY_W),
+            mouse_delta=np.array([0.004, -0.001], np.float32))
+    return inp
+
+
+def replay_long(eng, n=REPLAY_LONG):
+    """The headline recorded headless for ``n`` frames on ``eng`` from a
+    reset, each frame followed by the engine's own shadow update (so the
+    live shadow state is the one a rendered replay reaches); the log
+    flushed and loaded; then replayed on a fresh engine through the Player
+    with the camera detached (Esc, then the recorded inputs' keys and
+    mouse as the flight's controls) and every frame rendered, with
+    deterministic algorithms off and every Player.step after warm-up under
+    torch.cuda.set_sync_debug_mode("error"). The world hash after every
+    frame must equal the live run's, the shadow state at the end too, and
+    no program may be captured after the warm-up (interval x slots + 2
+    frames)."""
+    import tempfile
+
+    import torch
+
+    from render_engine_tpu_torch.demo.space_scene import build_space_engine
+    from render_engine_tpu_torch.logic.types import KEY_ESC, InputState
+    from render_engine_tpu_torch.runtime.history import HistoryLog
+    from render_engine_tpu_torch.runtime.replay import PlaybackMode, Player
+    from render_engine_tpu_torch.utils.hashing import world_hash
+
+    if torch.are_deterministic_algorithms_enabled():
+        raise RuntimeError("the long replay runs with deterministic "
+                           "algorithms off")
+    eng.config.record_history = True
+    eng.reset()
+    live = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        eng.frame(long_inputs(i), DT, render=False)
+        eng.update_shadows()
+        live.append(world_hash(eng.world))
+    live_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        eng.config.history_dir = d
+        eng.flush_history()
+        history = HistoryLog.load(d)
+    eng.config.record_history = False
+    if history.num_frames != n or any(history.frames_fused):
+        raise RuntimeError("the long log is not n headless frames")
+
+    eng2 = build_space_engine(device="cuda", **SLICE)
+    eng2.config.record_history = False
+    player = Player(eng2, history)
+    player.handle_controls(InputState.idle().with_keys(KEY_ESC))
+    warm = eng2.config.shadow_update_interval * eng2.config.shadow_slots + 2
+    programs = None
+    t0 = time.perf_counter()
+    for i in range(n):
+        controls = long_inputs(i)
+        if i == warm:
+            programs = eng2.captured_programs
+        if programs is None:
+            img, _ = player.step(controls, render=True)
+        else:
+            before = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                img, _ = player.step(controls, render=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(before)
+        if world_hash(eng2.world) != live[i]:
+            raise RuntimeError(f"long replay frame {i}: world hash differs "
+                               "from the live run's")
+    replay_s = time.perf_counter() - t0
+    if player.mode != PlaybackMode.DEBUG_CUSTOM_MOVEMENT:
+        raise RuntimeError(f"long replay ended in {player.mode}")
+    if eng2.captured_programs != programs:
+        raise RuntimeError(f"long replay captured after warm-up: "
+                           f"{sorted(map(str, eng2.captured_programs - programs))}")
+    a, b = eng.shadow_state, eng2.shadow_state
+    if not (all(torch.equal(getattr(a, k), getattr(b, k)) for k in
+                ("maps", "light_mats", "slot_entity", "slot_face"))
+            and (a.cursor, a.tick) == (b.cursor, b.tick)):
+        raise RuntimeError("long replay: shadow state differs at the end")
+    if tuple(img.shape) != (SLICE["height"], SLICE["width"], 3) or \
+            not bool(torch.isfinite(img).all()):
+        raise RuntimeError("long replay: the last image")
+    moved = float((player.detached_camera.position
+                   - eng2.camera.position).norm())
+    log(f"[replay] long: {n} headline frames recorded headless in "
+        f"{live_s:.1f} s and replayed with the detached camera in "
+        f"{replay_s:.1f} s (each with a world hash), deterministic "
+        f"algorithms off: world hashes equal the live run's after every "
+        f"frame, shadow state equal at the end (cursor {b.cursor}, tick "
+        f"{b.tick}), {len(programs)} programs, none captured after frame "
+        f"{warm}, no synchronization under sync debug mode 'error'; "
+        f"detached camera {moved:.3f} units from the recorded one")
+    del eng2
+    torch.cuda.empty_cache()
+    return {"frames": n, "record_s": live_s, "replay_s": replay_s,
+            "programs": len(programs)}
+
+
 def phase_replay(eng):
     """Recording off and on in turns; then, under deterministic
     algorithms, record on ``eng``, replay on a second engine, replay with
-    the detached camera and step past the end. Returns the launches of the
-    checked replay."""
+    the detached camera and step past the end; then, with them off, the
+    long recording (``replay_long``). Returns the launches of the checked
+    replay."""
     import torch
 
     from render_engine_tpu_torch.demo.space_scene import build_space_engine
@@ -1304,6 +1426,7 @@ def phase_replay(eng):
         replay_detached(eng2, history, live)
     finally:
         torch.use_deterministic_algorithms(False)
+    long = replay_long(eng)
     log(f"[replay] deterministic algorithms on: live median "
         f"{statistics.median(live_ms):.2f} ms/frame, replay median "
         f"{statistics.median(replay_ms):.2f} ms/frame (per frame: live "
@@ -1315,7 +1438,7 @@ def phase_replay(eng):
         "flush_ms": flush_ms, "npz_bytes": size,
         "live_ms_per_frame_deterministic": statistics.median(live_ms),
         "replay_ms_per_frame_deterministic": statistics.median(replay_ms),
-        "frames": len(REPLAY_RENDER)}}))
+        "frames": len(REPLAY_RENDER), "long": long}}))
     return launches
 
 

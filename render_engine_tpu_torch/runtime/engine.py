@@ -782,6 +782,15 @@ class Engine:
         for name in _WRITES[key[0]]:
             self._views.pop(name, None)
 
+    def capture(self, key: tuple):
+        """Capture the program ``key`` (see ``captured_programs``) now, as
+        its first use would, without running it: a caller that will need
+        it later (a replay that continues live past its recording's end)
+        keeps the capture out of its frames. A program dropped since (a
+        configuration change, ``set_tracing``) is captured again at its
+        next use, or by calling this again."""
+        self._program(key)
+
     def capture_seconds(self) -> dict:
         """Seconds each held program took to warm up and capture."""
         return {k: p.seconds for k, p in self._programs.items()}
@@ -830,6 +839,14 @@ class Engine:
             self._trace = P.FrameTracer(self.device)
         self._refresh_programs()
 
+    @property
+    def tracer(self) -> P.FrameTracer | None:
+        """The recorder of the calls while tracing is on, else None: a
+        caller above the engine (``runtime/replay.py``'s ``Player``) opens
+        its own calls around the engine's in it and tallies its counters
+        there."""
+        return self._trace if self._tracing else None
+
     def _call(self, kind: str, t0: int | None = None):
         """A block that is one traced call ``kind`` (host span, anchor,
         tail) and yields the tracer; with tracing off, nothing and None."""
@@ -856,7 +873,9 @@ class Engine:
         (those pixels, both layers), read the same way; where it renders
         on the non-fused route, ``gbuffer_tiles_resolved`` (the tiles of
         both layers in which the G-buffer kernel read a candidate row, those
-        holding a covered pixel; on the CPU every tile)."""
+        holding a covered pixel; on the CPU every tile); and the tallies of
+        a caller above the engine (``tracer``: a ``Player``'s
+        ``replayed_frames``, ``detached_renders`` and ``live_frames``)."""
         tr = self._trace
         if tr is None:
             return {"frames": [], "counters": {}}
@@ -874,6 +893,7 @@ class Engine:
             "render_drops": self._render_counters(program)}
         counters.update({k: program[k] for k in WORK_COUNTERS
                          if k in program})
+        counters.update(tr.tallies)
         return {"frames": tr.frames(), "counters": counters}
 
     def _program_counters(self) -> dict:

@@ -220,13 +220,14 @@ class CallRing:
 
 
 class _Call:
-    """One Engine call being recorded, then read back."""
+    """One Engine call being recorded, then read back; ``within`` is the
+    index of the call open around it (None at the top)."""
 
-    __slots__ = ("kind", "index", "host", "stack", "profiled", "programs",
-                 "anchor", "anchor_ns", "tail", "device")
+    __slots__ = ("kind", "index", "within", "host", "stack", "profiled",
+                 "programs", "anchor", "anchor_ns", "tail", "device")
 
-    def __init__(self, kind: str, index: int):
-        self.kind, self.index = kind, index
+    def __init__(self, kind: str, index: int, within: int | None = None):
+        self.kind, self.index, self.within = kind, index, within
         self.host: list = []  # [name, parent, start ns, end ns, tag]
         self.stack: list = []
         self.profiled: list = []  # record_function rows open
@@ -254,7 +255,10 @@ class FrameTracer:
     """What the Engine's calls record with tracing on (see the module
     docstring): ``open`` a call, ``host`` spans inside it, ``anchor``,
     ``replayed`` programs, ``close``; ``poll`` reads completed calls into
-    the ring."""
+    the ring. A call opened while another is open (the Engine's calls
+    inside a ``Player.step``, ``runtime/replay.py``) is a call of its own
+    that names the outer one (``within``); ``tally`` counts what such a
+    caller does (``tallies``, in ``Engine.trace_report``'s counters)."""
 
     def __init__(self, device, size: int = RING):
         self.cuda = torch.device(device).type == "cuda"
@@ -262,8 +266,10 @@ class FrameTracer:
         self.calls = 0
         self.unread = 0
         self.feed_waits = 0
+        self.tallies: dict = {}
         self._pending: collections.deque = collections.deque()
         self._call: _Call | None = None
+        self._outer: list = []  # the calls open around ``_call``
         self.last: _Call | None = None  # the last call that ran a program
         self._last_tail = None  # (index, event) of the last call read
         self._free: list = []  # timing events to reuse
@@ -288,8 +294,12 @@ class FrameTracer:
 
     def open(self, kind: str, t0: int):
         """A call starting at host time ``t0`` (ns): its host span
-        ``kind``."""
-        self._call = _Call(kind, self.calls)
+        ``kind``; inside an open call, a call within it."""
+        outer = self._call
+        if outer is not None:
+            self._outer.append(outer)
+        self._call = _Call(kind, self.calls,
+                           None if outer is None else outer.index)
         self.calls += 1
         self._enter(kind, None, t0)
 
@@ -367,11 +377,15 @@ class FrameTracer:
         self.poll()
         self._exit()
         self._exit()
-        self._call = None
+        self._call = self._outer.pop() if self._outer else None
         if c.programs:
             self.last = c
         if c.anchor is None:
             self._store(c)
+
+    def tally(self, name: str, n: int = 1):
+        """Adds ``n`` to the counter ``name``."""
+        self.tallies[name] = self.tallies.get(name, 0) + n
 
     # -- reading back ------------------------------------------------------
     def poll(self):
@@ -419,8 +433,9 @@ class FrameTracer:
 
 
 def call_dict(c: _Call, prev: _Call | None) -> dict:
-    """One call read back: its host spans (``start_ms`` from the call's
-    start), and where it was read, its device spans (``start_ms`` from the
+    """One call read back: ``within`` (the index of the call open around
+    it, or None), its host spans (``start_ms`` from the call's start), and
+    where it was read, its device spans (``start_ms`` from the
     anchor; ``program`` the program's key as a string, ``kind`` its first
     element), ``launch_ms`` (anchor to the first mark), ``busy_ms`` (first
     mark to tail), ``gap_ms`` (the previous call's tail to the anchor;
@@ -430,7 +445,7 @@ def call_dict(c: _Call, prev: _Call | None) -> dict:
     (the anchor on the host clock, from the call's start) and ``idle`` (the
     gap put down to the host spans that covered it)."""
     t0 = c.host[0][2]
-    d = {"index": c.index, "call": c.kind,
+    d = {"index": c.index, "call": c.kind, "within": c.within,
          "programs": [str(p[0]) for p in c.programs],
          "host": with_self_times([
              {"name": name, "parent": parent, "start_ms": (s - t0) / 1e6,

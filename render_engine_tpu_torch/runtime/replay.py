@@ -13,10 +13,38 @@ Port of ``render_engine_tpu/runtime/replay.py``:
 Replay runs the step again on the recorded inputs, from the recorded
 baseline; the detached camera renders the replayed states from elsewhere
 and never feeds the step, so the replayed world is the recorded one.
+
+The determinism contract: on one card, with
+``torch.use_deterministic_algorithms`` off (the normal path), a replayed
+frame's world, and the shadow state its frames leave, equal the live
+frame's to the bit. A replayed frame runs the Engine's captured programs
+that advanced it live (the recorded advance flag), over the same packed
+inputs, and nothing on that path depends on the order in which the device
+runs its threads: no float atomic, no write of two values to one place
+that both survive.
+
+What a detached frame runs, each frame: the recorded frame through
+``Engine.frame`` with ``render`` (a recorded step frame: the ``("step",)``
+program, then ``("render_shadowed", decision)``, the shadow update and the
+render from the recorded camera), whose image is cloned and dropped; then
+``Engine.render_only`` through the detached camera (the ``("render",
+camera configuration, False)`` program over the maps just updated), whose
+clone is the frame's image. The first render is needed only for its shadow
+update. The detached camera's flight (a few small eager kernels) is queued
+between the two, while the card runs the first.
+
+Tracing (``Engine.set_tracing``): each ``step`` is a call ``player.step``
+on the Engine's tracer, with host spans ``player.controls`` (the mode
+keys), ``player.history`` (the recorded frame decoded and its events
+applied) and ``player.camera`` (the detached camera's flight); the
+Engine's calls inside it are calls within it. Counters: ``replayed_frames``,
+``detached_renders`` and ``live_frames`` (frames run past the recording's
+end).
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
 
 import torch
@@ -27,17 +55,21 @@ from render_engine_tpu_torch.logic.types import (KEY_A, KEY_D, KEY_ESC,
                                                  KEY_W, InputState)
 from render_engine_tpu_torch.math import transforms as T
 from render_engine_tpu_torch.runtime.history import HistoryLog
+from render_engine_tpu_torch.utils.consts import const
 from render_engine_tpu_torch.utils.hashing import world_hash
 
 FLY_ACCEL = 60.0  # detached-camera flight acceleration, units/s^2
+# the counters a traced Player keeps on the Engine's tracer
+COUNTERS = ("replayed_frames", "detached_renders", "live_frames")
+_OFF = contextlib.nullcontext()
 
 
 def _flight_accel(camera, keys) -> torch.Tensor:
     """WASD + Space/Shift acceleration in the camera's frame, on the
-    camera's device; ``keys`` is the host-side bool vector."""
+    camera's device, with no upload; ``keys`` is the host-side bool
+    vector."""
     fwd = camera.direction()
-    world_up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                            device=fwd.device)
+    world_up = const((0.0, 1.0, 0.0), device=fwd.device)
     right = T.cross(fwd, world_up)
     right = right / torch.linalg.vector_norm(right).clamp(min=1e-6)
     a = torch.zeros(3, dtype=torch.float32, device=fwd.device)
@@ -94,8 +126,18 @@ class Player:
     # -- stepping ------------------------------------------------------------
     def step(self, controls: InputState | None = None, render: bool = True):
         """Advance one playback frame. Returns (image or None, at_end)."""
+        tr = self.engine.tracer
+        if tr is None:
+            return self._step(None, controls, render)
+        for name in COUNTERS:
+            tr.tally(name, 0)  # each reads 0 until it counts
+        with tr.call("player.step"):
+            return self._step(tr, controls, render)
+
+    def _step(self, tr, controls, render):
         if controls is not None:
-            self.handle_controls(controls)
+            with tr.host("player.controls") if tr else _OFF:
+                self.handle_controls(controls)
         eng = self.engine
 
         if self.mode in (PlaybackMode.DEBUG,
@@ -103,28 +145,37 @@ class Player:
             if self.cursor >= self.history.num_frames:
                 self.mode = PlaybackMode.ONE_PAST_LAST_FRAME
                 return None, True
-            # recorded config changes apply before the frame they preceded
-            event = self.history.events.get(self.cursor)
-            if event:
-                eng.apply_config_event(event)
-            inputs, dt = self.history.frame(self.cursor)
-            # the recorded advance flag, verbatim: it decides the shadow
-            # update, so shadow maps and images follow the live run
-            adv = "fused" if self.history.advance_fused(self.cursor) \
-                else "step"
-            self.cursor += 1
+            with tr.host("player.history") if tr else _OFF:
+                # recorded config changes apply before the frame they
+                # preceded
+                event = self.history.events.get(self.cursor)
+                if event:
+                    eng.apply_config_event(event)
+                inputs, dt = self.history.frame(self.cursor)
+                # the recorded advance flag, verbatim: it decides the
+                # shadow update, so shadow maps and images follow the live
+                # run
+                adv = "fused" if self.history.advance_fused(self.cursor) \
+                    else "step"
+                self.cursor += 1
+            img = eng.frame(inputs, dt, render=render, advance=adv)
+            if tr:
+                tr.tally("replayed_frames")
             detached = self.mode == PlaybackMode.DEBUG_CUSTOM_MOVEMENT
             if detached and controls is not None:
-                # mouse look and WASD flight; the recorded camera still
-                # drives the step
-                cam = self.detached_camera.rotated(
-                    float(controls.mouse_delta[0]),
-                    float(controls.mouse_delta[1]))
-                self.detached_camera = cam.float_position(
-                    _flight_accel(cam, controls.keys), dt)
-            img = eng.frame(inputs, dt, render=render, advance=adv)
+                # mouse look and WASD flight, queued behind the frame (the
+                # recorded camera drives the step, and the flight reads
+                # nothing the frame writes)
+                with tr.host("player.camera") if tr else _OFF:
+                    cam = self.detached_camera.rotated(
+                        float(controls.mouse_delta[0]),
+                        float(controls.mouse_delta[1]))
+                    self.detached_camera = cam.float_position(
+                        _flight_accel(cam, controls.keys), dt)
             if detached and render and self.detached_camera is not None:
                 img = eng.render_only(self.detached_camera)
+                if tr:
+                    tr.tally("detached_renders")
             return img, self.cursor >= self.history.num_frames
 
         if self.mode == PlaybackMode.ONE_PAST_LAST_FRAME:
@@ -132,6 +183,8 @@ class Player:
             if controls is not None and bool(controls.keys[KEY_UP]):
                 img = eng.frame(InputState.idle(seed=eng.frame_index),
                                 render=render)
+                if tr:
+                    tr.tally("live_frames")
                 self.mode = PlaybackMode.ONE_PAST_LAST_PAUSE
                 return img, True
             return None, True
@@ -142,6 +195,8 @@ class Player:
         # RUN: live simulation past the recording
         img = eng.frame(controls or InputState.idle(seed=eng.frame_index),
                         render=render)
+        if tr:
+            tr.tally("live_frames")
         return img, True
 
     # -- verification ---------------------------------------------------------
