@@ -23,23 +23,28 @@ inputs, and nothing on that path depends on the order in which the device
 runs its threads: no float atomic, no write of two values to one place
 that both survive.
 
-What a detached frame runs, each frame: the recorded frame through
-``Engine.frame`` with ``render`` (a recorded step frame: the ``("step",)``
-program, then ``("render_shadowed", decision)``, the shadow update and the
-render from the recorded camera), whose image is cloned and dropped; then
+What a detached frame runs, each frame, rendering once: the recorded frame
+through ``Engine.frame`` without ``render`` (a recorded step frame: the
+``("step",)`` program; a recorded fused frame: the ``("frame", decision)``
+program it ran live, whose image is not copied), then for a step frame
+``Engine.update_shadows`` (the shadow update the live render would have
+made: ``("shadows", "map")`` on a map decision, nothing on a skip), then
 ``Engine.render_only`` through the detached camera (the ``("render",
 camera configuration, False)`` program over the maps just updated), whose
-clone is the frame's image. The first render is needed only for its shadow
-update. The detached camera's flight (a few small eager kernels) is queued
-between the two, while the card runs the first.
+clone is the frame's image. The update reads the stepped world and the
+recorded camera, as the recorded camera's render would have, so the world
+and the shadow state are the live run's to the bit; the recorded camera's
+image is never made. The detached camera's flight (a few small eager
+kernels) is queued behind the frame's programs.
 
 Tracing (``Engine.set_tracing``): each ``step`` is a call ``player.step``
 on the Engine's tracer, with host spans ``player.controls`` (the mode
 keys), ``player.history`` (the recorded frame decoded and its events
 applied) and ``player.camera`` (the detached camera's flight); the
 Engine's calls inside it are calls within it. Counters: ``replayed_frames``,
-``detached_renders`` and ``live_frames`` (frames run past the recording's
-end).
+``detached_renders``, ``single_render_frames`` (replayed frames that ran
+no render from the recorded camera) and ``live_frames`` (frames run past
+the recording's end).
 """
 
 from __future__ import annotations
@@ -60,7 +65,8 @@ from render_engine_tpu_torch.utils.hashing import world_hash
 
 FLY_ACCEL = 60.0  # detached-camera flight acceleration, units/s^2
 # the counters a traced Player keeps on the Engine's tracer
-COUNTERS = ("replayed_frames", "detached_renders", "live_frames")
+COUNTERS = ("replayed_frames", "detached_renders", "single_render_frames",
+            "live_frames")
 _OFF = contextlib.nullcontext()
 
 
@@ -158,10 +164,19 @@ class Player:
                 adv = "fused" if self.history.advance_fused(self.cursor) \
                     else "step"
                 self.cursor += 1
-            img = eng.frame(inputs, dt, render=render, advance=adv)
+            detached = self.mode == PlaybackMode.DEBUG_CUSTOM_MOVEMENT
+            view = detached and render and self.detached_camera is not None
+            # a detached view shows only the detached camera's image: the
+            # recorded frame runs without its render, and a step frame
+            # then takes the shadow update that render would have made
+            img = eng.frame(inputs, dt, render=render and not view,
+                            advance=adv)
+            if view and adv == "step":
+                eng.update_shadows()
+                if tr:
+                    tr.tally("single_render_frames")
             if tr:
                 tr.tally("replayed_frames")
-            detached = self.mode == PlaybackMode.DEBUG_CUSTOM_MOVEMENT
             if detached and controls is not None:
                 # mouse look and WASD flight, queued behind the frame (the
                 # recorded camera drives the step, and the flight reads
@@ -172,7 +187,7 @@ class Player:
                         float(controls.mouse_delta[1]))
                     self.detached_camera = cam.float_position(
                         _flight_accel(cam, controls.keys), dt)
-            if detached and render and self.detached_camera is not None:
+            if view:
                 img = eng.render_only(self.detached_camera)
                 if tr:
                     tr.tally("detached_renders")

@@ -13,14 +13,20 @@ configuration's other settings (two slots, a map every third frame), with
   limits; the detached camera's flight against the reference's;
 * a replay on a fresh engine equal to the live recording at every frame
   (world hash) and in its shadow state at the end, with deterministic
-  algorithms on and off;
+  algorithms on and off, and so a recording of rendered and headless
+  frames;
+* the detached replay, which renders once a frame, equal to the two
+  renders a frame it replaces (world, shadow state and image, every
+  frame);
 * after warm-up a replayed detached frame captures nothing and reads or
   uploads nothing on the host;
-* the Player's spans and counters, and the two metric readers on a span
-  phase: a value for the playback, None for another program's.
+* the Player's spans and counters, one program that renders in each
+  traced detached frame, and the two metric readers on a span phase: a
+  value for the playback, None for another program's.
 """
 
 import ast
+import contextlib
 import copy
 import dataclasses
 import os
@@ -37,8 +43,8 @@ from port_bench.traffic import Traffic
 from render_engine_tpu_torch.logic.types import (KEY_ESC, KEY_W,
                                                  InputState)
 from render_engine_tpu_torch.math.camera import CameraBuilder
-from render_engine_tpu_torch.runtime.replay import (PlaybackMode, Player,
-                                                    _flight_accel)
+from render_engine_tpu_torch.runtime.replay import (COUNTERS, PlaybackMode,
+                                                    Player, _flight_accel)
 from render_engine_tpu_torch.utils.hashing import world_hash
 
 from host_traffic import no_host_traffic
@@ -132,8 +138,61 @@ def test_past_the_end_frames_run_live_as_the_reference(run):
 def test_a_replayed_frame_after_warm_up_captures_nothing(run):
     before, after = run["host"]
     assert before == after
-    assert {k[0] for k in after} == {"frame", "step", "render_shadowed",
-                                     "render"}
+    # the recorded frame's step and shadow update, the detached render,
+    # and the live frames' programs; no render from the recorded camera
+    assert {k[0] for k in after} == {"frame", "step", "shadows", "render"}
+
+
+SHADOW = ("maps", "light_mats", "slot_entity", "slot_face")
+FUSED = (0, 4, 5, 9)  # the mixed recording's frames rendered live
+CONTROLS = dataclasses.replace(InputState.idle().with_keys(KEY_W),
+                               mouse_delta=np.array([0.02, -0.01],
+                                                    np.float32))
+
+
+@contextlib.contextmanager
+def _deterministic_algorithms(on):
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(on)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def _live(fused=()):
+    """The recording's frames live, W and a turn on some of them: those in
+    ``fused`` rendered (the frame program), the others headless, each
+    followed by the engine's shadow update. The live engine and its world
+    hash after every frame."""
+    traffic = Traffic(manifest.traffic("step"), SEED)
+    live = space_program.build(dict(_config(), record_history=True), SEED,
+                               "cpu", SIZE)
+    hashes = []
+    for i in range(RECORDED):
+        fr = traffic.frame(i)
+        inp = _inputs(fr).with_keys(KEY_W) if i % 3 == 1 else _inputs(fr)
+        if i in fused:
+            live.frame(inp, fr.dt, render=True)
+        else:
+            live.frame(inp, fr.dt, render=False)
+            live.update_shadows()
+        hashes.append(world_hash(live.world))
+    return live, hashes
+
+
+def _detached_step(player, i):
+    """Replayed frame ``i`` rendered through the detached camera: Esc on
+    the first frame, W and a mouse turn on every frame."""
+    controls = CONTROLS.with_keys(KEY_ESC) if i == 0 else CONTROLS
+    img, _ = player.step(controls, render=True)
+    return img
+
+
+def _assert_same_shadows(a, b):
+    for name in SHADOW:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert (a.cursor, a.tick) == (b.cursor, b.tick)
 
 
 @pytest.mark.parametrize("deterministic", [True, False])
@@ -142,42 +201,73 @@ def test_replay_is_the_live_run_to_the_bit(deterministic):
     engine's shadow update), then replayed on a fresh engine through the
     Player with the camera detached and every frame rendered: the world
     hash after every frame, and the shadow state at the end, equal."""
-    prev = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(deterministic)
-    try:
-        cfg = _config()
-        traffic = Traffic(manifest.traffic("step"), SEED)
-        live = space_program.build(dict(cfg, record_history=True), SEED,
-                                   "cpu", SIZE)
-        hashes = []
-        for i in range(RECORDED):
-            fr = traffic.frame(i)
-            # W and a turn on some frames, so the recording is not idle
-            inp = _inputs(fr).with_keys(KEY_W) if i % 3 == 1 else \
-                _inputs(fr)
-            live.frame(inp, fr.dt, render=False)
-            live.update_shadows()
-            hashes.append(world_hash(live.world))
-        eng = space_program.build(cfg, SEED, "cpu", SIZE)
+    with _deterministic_algorithms(deterministic):
+        live, hashes = _live()
+        eng = space_program.build(_config(), SEED, "cpu", SIZE)
         player = Player(eng, live.history)
-        controls = dataclasses.replace(
-            InputState.idle().with_keys(KEY_W),
-            mouse_delta=np.array([0.02, -0.01], np.float32))
-        player.step(controls.with_keys(KEY_ESC), render=True)
-        got = [world_hash(eng.world)]
-        for _ in range(RECORDED - 1):
-            player.step(controls, render=True)
+        got = []
+        for i in range(RECORDED):
+            _detached_step(player, i)
             got.append(world_hash(eng.world))
-    finally:
-        torch.use_deterministic_algorithms(prev)
     assert got == hashes
     a, b = live.shadow_state, eng.shadow_state
-    for name in ("maps", "light_mats", "slot_entity", "slot_face"):
-        assert torch.equal(getattr(a, name), getattr(b, name)), name
-    assert (a.cursor, a.tick) == (b.cursor, b.tick) == (
-        len(range(0, RECORDED, 3)), RECORDED)
+    _assert_same_shadows(a, b)
+    assert (b.cursor, b.tick) == (len(range(0, RECORDED, 3)), RECORDED)
     assert not torch.equal(player.detached_camera.position,
                            eng.camera.position)
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_one_render_is_the_two_render_sequence_to_the_bit(deterministic):
+    """The detached replay, which renders once a frame, against the
+    sequence it replaces, driven on a second engine from the same
+    baseline: each recorded frame through ``Engine.frame`` with ``render``
+    (the step, then the shadow update and the render from the recorded
+    camera), then ``render_only`` through the detached camera. After every
+    frame the world hash, the shadow tables, cursor and tick, and the
+    detached image equal."""
+    with _deterministic_algorithms(deterministic):
+        live, _ = _live()
+        assert not any(live.history.frames_fused)
+        assert not live.history.events
+        eng = space_program.build(_config(), SEED, "cpu", SIZE)
+        two = space_program.build(_config(), SEED, "cpu", SIZE)
+        player = Player(eng, live.history)
+        Player(two, live.history)  # the same baseline, restored
+        for i in range(RECORDED):
+            img = _detached_step(player, i)
+            inputs, dt = live.history.frame(i)
+            recorded = two.frame(inputs, dt, render=True, advance="step")
+            shown = two.render_only(player.detached_camera)
+            assert world_hash(eng.world) == world_hash(two.world), i
+            _assert_same_shadows(eng.shadow_state, two.shadow_state)
+            assert torch.equal(img, shown), i
+    assert not torch.equal(img, recorded)
+
+
+def test_a_mixed_recording_replays_detached_to_the_bit():
+    """A recording of rendered (fused) and headless (step) frames, replayed
+    with the camera detached and every frame rendered: the world hash
+    after every frame and the shadow state at the end are the live run's;
+    only the step frames count as rendered once."""
+    live, hashes = _live(fused=FUSED)
+    assert [i for i in range(RECORDED)
+            if live.history.advance_fused(i)] == list(FUSED)
+    eng = space_program.build(_config(), SEED, "cpu", SIZE)
+    eng.set_tracing(True)
+    player = Player(eng, live.history)
+    got = []
+    for i in range(RECORDED):
+        _detached_step(player, i)
+        got.append(world_hash(eng.world))
+    assert got == hashes
+    _assert_same_shadows(live.shadow_state, eng.shadow_state)
+    c = eng.trace_report()["counters"]
+    assert (c["replayed_frames"], c["detached_renders"],
+            c["single_render_frames"]) == (RECORDED, RECORDED,
+                                           RECORDED - len(FUSED))
+    assert {k[0] for k in eng.captured_programs} == {"frame", "step",
+                                                     "shadows", "render"}
 
 
 def test_the_flight_is_the_references():
@@ -241,14 +331,34 @@ def test_the_player_records_its_spans_and_counters(traced):
     within = [(c["call"], c["within"]) for c in calls
               if c["within"] == first["index"]]
     assert within == [("engine.frame", first["index"]),
+                      ("engine.update_shadows", first["index"]),
                       ("engine.render", first["index"])]
     c = traced["playback"]["spans"]["counters"]
     assert (c["replayed_frames"], c["detached_renders"],
-            c["live_frames"]) == (4, 4, 2)
+            c["single_render_frames"], c["live_frames"]) == (4, 4, 4, 2)
     # a replay that has not reached its end counts its live frames as 0
     assert traced["replaying"]["spans"]["counters"]["live_frames"] == 0
-    assert not {"replayed_frames", "detached_renders", "live_frames"} & set(
-        traced["space"]["spans"]["counters"])
+    assert not set(COUNTERS) & set(traced["space"]["spans"]["counters"])
+
+
+def _kind(program):
+    """The kind of a program's key as a trace names it: ``('step',)``
+    is ``step``."""
+    return program[2:].split("'")[0]
+
+
+def test_a_traced_detached_frame_renders_once(traced):
+    """Each replayed detached frame of the span phase replays no
+    ``render_shadowed`` program and one program that renders, the
+    detached camera's."""
+    calls = traced["playback"]["spans"]["frames"]
+    players = [c["index"] for c in calls if c["call"] == "player.step"]
+    for index in players[:4]:  # the recording's frames
+        kinds = [_kind(p) for c in calls if c.get("within") == index
+                 for p in c["programs"]]
+        assert "render_shadowed" not in kinds
+        assert [k for k in kinds if k in (
+            "frame", "render_shadowed", "render")] == ["render"], kinds
 
 
 @pytest.mark.parametrize("name", READERS)
