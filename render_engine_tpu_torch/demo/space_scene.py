@@ -358,17 +358,19 @@ def build_space_engine(*, device="cuda", **kw) -> Engine:
 
 def build_many_lights_engine(*, device="cuda", n_lights: int = 256,
                              light_tile_budget: int = 96, width: int = 1280,
-                             height: int = 720) -> Engine:
+                             height: int = 720, seed: int = 42) -> Engine:
     """The many-lights configuration: the space scene with 200 asteroids
-    (raster budgets 192 / 128: a 720p frame packs the cluster into fewer
-    tiles than 1080p), ``n_lights`` point lights made from seed 0 around
-    the scene (radii 40 to 90), a light table of ``n_lights`` point and 8
-    spot rows, per-tile light lists of ``light_tile_budget`` entries and
-    the demo's two render systems. Frames are not recorded."""
-    eng = build_space_engine(
-        device=device, width=width, height=height, capacity=1024,
-        num_asteroids=200, max_tris=24576, raster_tile_budget=192,
-        trans_tile_budget=128)
+    drawn from ``seed`` (raster budgets 192 / 128: a 720p frame packs the
+    cluster into fewer tiles than 1080p), ``n_lights`` point lights made
+    from seed 0 around the scene (radii 40 to 90), a light table of
+    ``n_lights`` point and 8 spot rows, per-tile light lists of
+    ``light_tile_budget`` entries and the demo's two render systems.
+    Frames are not recorded."""
+    cfg = space_config(
+        width=width, height=height, capacity=1024, num_asteroids=200,
+        max_tris=24576, raster_tile_budget=192, trans_tile_budget=128)
+    cfg.build_scene = lambda e: build_scene(e, num_asteroids=200, seed=seed)
+    eng = Engine(cfg, camera=space_camera(width, height), device=device)
     eng.config.record_history = False
     nl = n_lights
     rng = np.random.default_rng(0)

@@ -32,13 +32,16 @@ rows, skybox toggle), then takes one of three paths, as the JAX package's
 In a traced program (``profiling.mark``) a frame's stages are spans:
 ``render.geometry`` (``frame_inputs``), ``render.raster`` (binning, the
 candidate rows, K1), ``render.resolve`` (K2 with the texture override),
-``render.shade`` (the PCF factor tiles, light lists and K3; on the
-non-fused path ``deferred_shade``), ``render.custom`` (custom shading,
-only where a system has a shading function) and ``render.compose``; and
-the frame keeps two of its counters, ``triangle_budget_dropped`` and
-``tile_candidate_dropped`` (``profiling.count``), on the fused path with
-custom shading the three of ``CUSTOM_COUNTERS``, and on the non-fused path
-``gbuffer_tiles_resolved`` (``WORK_COUNTERS``).
+``render.lights`` (the per-tile light lists, only where
+``light_tile_budget`` is on), ``render.shade`` (the PCF factor tiles and
+K3; on the non-fused path ``deferred_shade``), ``render.custom`` (custom
+shading, only where a system has a shading function) and
+``render.compose``; and the frame keeps two of its counters,
+``triangle_budget_dropped`` and ``tile_candidate_dropped``
+(``profiling.count``), with light lists a third, ``light_tile_overflow``,
+and the lists' (tile, light) pairs, ``tile_light_pairs``; on the fused
+path with custom shading the three of ``CUSTOM_COUNTERS``, and on the
+non-fused path ``gbuffer_tiles_resolved`` (``WORK_COUNTERS``).
 """
 
 from __future__ import annotations
@@ -74,9 +77,11 @@ BACKENDS = ("auto", "pallas", "jnp")
 CUSTOM_COUNTERS = ("custom_tiles_resolved", "custom_tiles_owned",
                    "custom_pixels")
 # the counters of a frame's work, beside its drop counters: the custom
-# shading's and the non-fused path's tiles in which the G-buffer kernel
-# read a candidate row (``tall_gbuffer.count_resolved``)
-WORK_COUNTERS = CUSTOM_COUNTERS + ("gbuffer_tiles_resolved",)
+# shading's, the non-fused path's tiles in which the G-buffer kernel
+# read a candidate row (``tall_gbuffer.count_resolved``) and the (tile,
+# light) pairs of the per-tile light lists, which K3's list loop walks
+WORK_COUNTERS = CUSTOM_COUNTERS + ("gbuffer_tiles_resolved",
+                                   "tile_light_pairs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -675,23 +680,28 @@ def tiled_fused_core(batch, lights, bank, settings: RenderSettings, camera, *,
             ovr_t = torch.zeros_like(ovr_o)
         albedo_override = torch.cat([ovr_o, ovr_t]).contiguous()
 
-    P.mark("render.shade")
+    with_lists = settings.light_tile_budget > 0
+    P.mark("render.lights" if with_lists else "render.shade")
     inv_pv = T.inv44(camera.proj_view())
+    tile_lights = None
+    if with_lists:
+        ltab_sel, n_live = pack_lights(
+            lights, settings.max_dir_lights + settings.max_point_lights
+            + settings.max_spot_lights)
+        tlist, tcount, dropped = select_tile_lights(
+            ltab_sel, n_live, camera.position, inv_pv, tiles_x, tiles_y, th,
+            twd, width, h_total, y_off, settings.light_tile_budget)
+        tile_lights = (tlist, tcount)
+        if P.armed():
+            P.count("light_tile_overflow", dropped)
+            P.count("tile_light_pairs", tcount.sum(dtype=torch.int64))
+        P.mark("render.shade")
     sft = sfi = sent = None
     if shadow_state is not None:
         sft, sfi = _per_slot_factor_tiles(
             shadow_state, d, wn, tiles_x, th, twd, width, h_total, inv_pv,
             y_off, settings.shadow_tile_budget)
         sent = shadow_state.slot_entity
-    tile_lights = None
-    if settings.light_tile_budget > 0:
-        ltab_sel, n_live = pack_lights(
-            lights, settings.max_dir_lights + settings.max_point_lights
-            + settings.max_spot_lights)
-        tlist, tcount, _ = select_tile_lights(
-            ltab_sel, n_live, camera.position, inv_pv, tiles_x, tiles_y, th,
-            twd, width, h_total, y_off, settings.light_tile_budget)
-        tile_lights = (tlist, tcount)
     uni_shin = bank.uniform_shininess()
     shaded = fused_shade(
         rows, s, ts, d, td, lights, camera.position, inv_pv, tiles_x, width,

@@ -862,11 +862,15 @@ class Engine:
         device (``feed_waits``), the kernel launches, the programs held
         (``captures``, ``capture_s``), the step's six drop counters as the
         last step left them (``step_drops``) and the render's
-        ``triangle_budget_dropped`` and ``tile_candidate_dropped`` as the
-        last traced program that renders left them (``render_drops``, read
-        from the graph: no geometry runs again), and, where that program
-        shades a system's pixels on the fused route, ``custom_tiles_resolved``
-        (the tiles resolved for the shading functions, both layers: on a
+        ``triangle_budget_dropped`` and ``tile_candidate_dropped`` (with
+        per-tile light lists on the fused route also ``light_tile_overflow``)
+        as the last traced program that renders left them (``render_drops``,
+        read from the graph: no geometry runs again); with light lists,
+        ``tile_light_pairs`` (the (tile, light) pairs of the frame's lists,
+        which K3's list loop walks), read the same way; and, where that
+        program shades a system's pixels on the fused route,
+        ``custom_tiles_resolved`` (the tiles resolved for the shading
+        functions, both layers: on a
         card those in which the G-buffer kernel read a candidate row, on
         the CPU every tile), ``custom_tiles_owned`` (those holding an owned
         pixel of a shading system, counted per layer) and ``custom_pixels``
@@ -1109,8 +1113,9 @@ class Engine:
         here). The render's are ``render_drop_stats``, which runs the
         frame's geometry and binning again for the current state; with
         tracing on and a last call that rendered, ``triangle_budget_dropped``
-        and ``tile_candidate_dropped`` come instead from its program (the
-        graph keeps both, ``trace_report``'s ``render_drops``), and the
+        and ``tile_candidate_dropped`` (and with light lists on the fused
+        route ``light_tile_overflow``) come instead from its program (the
+        graph keeps them, ``trace_report``'s ``render_drops``), and the
         re-run gives the others."""
         out = {}
         if self._last_drops is not None:
